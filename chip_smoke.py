@@ -19,9 +19,13 @@ Phases (any failure exits non-zero):
              the card, and a 32x32 render on the card against the CPU;
   5. times   forward wall time and a torch.profiler breakdown of one
              forward; each kernel per launch at the shapes the render gave
-             it (captured from a render), its plain version, and its bound:
-             the ray-triangle tests those inputs need x 48 FP32 operations
-             over 67 TFLOP/s (H100 SXM, outside the tensor cores);
+             it (captured from a render): the kernel alone (its output fill
+             and launch; CUDA events around 20 back-to-back calls, median
+             of 5 such runs), the wrapper, the plain version, and the
+             bound: the ray-triangle tests those inputs need x 48 FP32
+             operations over 67 TFLOP/s (H100 SXM, outside the tensor
+             cores); then the same for the random and on-geometry ray sets
+             of phase 3;
   6. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
@@ -179,20 +183,36 @@ def ray_sets(fs, scene, dev, n=65536, seed=0):
 # ----------------------------------------------------------------------
 
 
-def time_cuda(fn, reps):
-    """Median ms per call over `reps` CUDA-event-timed calls, after warm-up."""
+def time_cuda(fn, reps, rounds=5):
+    """ms per call: CUDA events around `reps` back-to-back calls, after a
+    warm-up; (median, min, max) over `rounds` such runs."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times), min(times), max(times)
+
+
+def kernel_only(kind, lay, rb):
+    """A call that runs just the kernel on batch rb: its output fill and
+    the launch (the wrapper also unpacks the closest-hit keys), and the
+    output it writes."""
+    closest = kind == "closest_hit"
+    out = torch.empty((rb.R.shape[0],), device=rb.R.device,
+                      dtype=torch.int64 if closest else torch.int32)
+
+    def run():
+        out.fill_(ic.NO_HIT if closest else 0)
+        ic._launch("rt_" + kind, lay, rb, out)
+    return run, out
 
 
 def profile_forward(render, top=12):
@@ -233,9 +253,10 @@ def profile_forward(render, top=12):
 def work_bound(fs, rb, steps=None):
     """(bound_ms, bound_by, tests) for one kernel launch on batch rb: the
     ray-triangle tests its data needs (live lanes x real triangles of each
-    active chunk, up to the settle point for any hit) x OPS_PER_TEST over
-    the FP32 peak, against each input read once and each output written
-    once over the HBM rate."""
+    active chunk, for any hit up to the settle point `steps` that
+    anyhit_plain reports, so the bound does not move with the kernel) x
+    OPS_PER_TEST over the FP32 peak, against each input read once and each
+    output written once over the HBM rate."""
     lay = fs.layout
     dev = rb.mask.device
     ntile = rb.mask.shape[0]
@@ -251,8 +272,7 @@ def work_bound(fs, rb, steps=None):
     tris = (visited.to(torch.int64) * real).sum(dim=1)
     tests = int((tris * live_per_tile).sum())
     nbytes = 4 * (rb.R.numel() + rb.tmin.numel() + rb.tmax.numel()
-                  + lay.Tc.numel() + rb.tile_ptr.numel()
-                  + rb.tile_chunks.numel() + 2 * rb.R.shape[0])
+                  + lay.Tp.numel() + rb.pairs.numel() + 2 * rb.R.shape[0])
     t_ops = tests * OPS_PER_TEST / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
@@ -394,9 +414,9 @@ def phase_times(fs, scene, opts):
     wrappers = {"closest_hit": ic.closest_hit, "any_hit": ic.any_hit}
 
     def recorder(kind):
-        def run(Tc, rb):
-            captured.append((kind, Tc, rb))
-            return wrappers[kind](Tc, rb)
+        def run(lay, rb):
+            captured.append((kind, rb))
+            return wrappers[kind](lay, rb)
         return run
 
     ic.closest_hit, ic.any_hit = recorder("closest_hit"), recorder("any_hit")
@@ -408,37 +428,65 @@ def phase_times(fs, scene, opts):
     torch.cuda.synchronize()
 
     per = {k: [] for k in REPLACES}
-    for i, (kind, Tc, rb) in enumerate(captured):
-        kfn, pfn = wrappers[kind], PLAIN[kind]
-        with torch.no_grad():
-            k_ms = time_cuda(lambda: kfn(Tc, rb), 9)
-            p_ms = time_cuda(lambda: pfn(Tc, rb), 5)
-            kout, pout = kfn(Tc, rb), pfn(Tc, rb)
-        if kind == "closest_hit":
-            bound, by, tests = work_bound(fs, rb)
-            same = kout[1].to(torch.int64) == pout[1]
-            fin = same & torch.isfinite(pout[0])
-            err = float((kout[0][fin] - pout[0][fin]).abs().max()) \
-                if fin.any() else 0.0
-            bad = int((~same).sum())
-        else:
-            bound, by, tests = work_bound(fs, rb, steps=kout[1])
-            differ = (kout[0] != 0) != pout[0]
-            err = float(differ.any())
-            bad = int(differ.sum())
-            _check(bool((kout[1].to(torch.int64) == pout[1]).all()),
-                   "any-hit settle points differ from the plain version")
-        _check(bad <= (1 - AGREE_MIN) * rb.n,
-               f"launch {i} {kind}: {bad} lanes differ from the plain version")
-        per[kind].append(dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, by=by,
-                              err=err))
-        print(f"[times] launch {i} {kind}: {rb.n} rays, {int(rb.mask.sum())} "
-              f"active (tile, chunk) pairs of {rb.mask.numel()}, {tests} "
-              f"ray-triangle tests; kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-              f"bound {bound:.4f} ms ({by}); {bad} lanes differ", flush=True)
+    for i, (kind, rb) in enumerate(captured):
+        per[kind].append(measure_launch(f"launch {i}", kind, fs, rb))
     _check(len(per["closest_hit"]) == 8 and len(per["any_hit"]) == 4,
            f"captured {[(k, len(v)) for k, v in per.items()]}")
     return fwd_ms, per
+
+
+def measure_launch(label, kind, fs, rb):
+    """One kernel on batch rb: its time, its plain version's, its bound,
+    and its agreement with the plain version (exact for any hit)."""
+    lay = fs.layout
+    kfn = {"closest_hit": ic.closest_hit, "any_hit": ic.any_hit}[kind]
+    pfn = PLAIN[kind]
+    run, _ = kernel_only(kind, lay, rb)
+    with torch.no_grad():
+        k_ms, k_lo, k_hi = time_cuda(run, 20)
+        w_ms, _, _ = time_cuda(lambda: kfn(lay, rb), 20, rounds=3)
+        p_ms, _, _ = time_cuda(lambda: pfn(lay.Tc, rb), 1, rounds=3)
+        kout, pout = kfn(lay, rb), pfn(lay.Tc, rb)
+    if kind == "closest_hit":
+        bound, by, tests = work_bound(fs, rb)
+        same = kout[1].to(torch.int64) == pout[1]
+        fin = same & torch.isfinite(pout[0])
+        err = float((kout[0][fin] - pout[0][fin]).abs().max()) \
+            if fin.any() else 0.0
+        bad = int((~same).sum())
+        _check(bad <= (1 - AGREE_MIN) * rb.n,
+               f"{label} {kind}: {bad} lanes differ from the plain version")
+    else:
+        bound, by, tests = work_bound(fs, rb, steps=pout[1])
+        differ = (kout != 0) != pout[0]
+        err = float(differ.any())
+        bad = int(differ.sum())
+        _check(bad == 0, f"{label} {kind}: blocked differs from the plain "
+               f"version on {bad} lanes")
+    cnt = rb.mask.sum(dim=1).to(torch.float64)
+    print(f"[times] {label} {kind}: {rb.n} rays, {rb.pairs.shape[0]} active "
+          f"(tile, chunk) pairs of {rb.mask.numel()}, active chunks per tile "
+          f"mean {float(cnt.mean()):.2f} max {int(cnt.max())}, {tests} "
+          f"ray-triangle tests; kernel {k_ms:.4f} ms ({k_lo:.4f}-{k_hi:.4f}), "
+          f"with the wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+          f"{bound:.4f} ms ({by}), time/bound {k_ms / bound:.2f}; {bad} lanes "
+          f"differ", flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, by=by, err=err)
+
+
+def phase_sets(fs, scene, dev):
+    """Each kernel timed on the incoherent random and on-geometry sets of
+    phase 3 (the kind of rays the edge passes send), with its bound."""
+    sets = ray_sets(fs, scene, dev)
+    out = {}
+    for name in ("random", "on_geometry"):
+        fs_s, ray, sray = sets[name]
+        for kind, r in (("closest_hit", ray), ("any_hit", sray)):
+            with torch.no_grad():
+                rb = ic.prepare_rays(fs_s, r)
+            row = measure_launch(name, kind, fs_s, rb)
+            out[f"{name}/{kind}"] = {k: row[k] for k in ("ms", "bound_ms")}
+    return out
 
 
 def main():
@@ -462,6 +510,7 @@ def main():
     opts = rtt.RenderOptions(num_samples=4, max_bounces=1)
     launches = phase_render(scene, opts)
     fwd_ms, per = phase_times(fs, scene, opts)
+    sets = phase_sets(fs, scene, dev)
 
     kernels = []
     for kind, rows in per.items():
@@ -482,6 +531,8 @@ def main():
             "mismatched_lanes": stats[kind]["bad"],
             "compared_lanes": stats[kind]["n"],
             "forward_ms": fwd_ms,
+            "ray_sets": {k.split("/")[0]: v for k, v in sets.items()
+                         if k.endswith(kind)},
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

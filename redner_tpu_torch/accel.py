@@ -38,8 +38,10 @@ def intersect(fs, ray: Ray, presorted: bool = False, precise=False,
     tile-coherent ray order, so the Morton ray sort is skipped."""
     _check_engine(engine)
     rb = ic.prepare_rays(fs, ray, presorted)
-    sweep = plain.closest_plain if engine == "plain" else ic.closest_hit
-    best_t, best_i = sweep(fs.layout.Tc, rb)
+    if engine == "plain":
+        best_t, best_i = plain.closest_plain(fs.layout.Tc, rb)
+    else:
+        best_t, best_i = ic.closest_hit(fs.layout, rb)
     return ic.finish_closest(fs, rb, best_t, best_i)
 
 
@@ -48,6 +50,8 @@ def occluded(fs, ray: Ray, presorted: bool = False, precise=False,
     """True where the segment (tmin, tmax) of a ray is blocked."""
     _check_engine(engine)
     rb = ic.prepare_rays(fs, ray, presorted)
-    sweep = plain.anyhit_plain if engine == "plain" else ic.any_hit
-    blocked, _ = sweep(fs.layout.Tc, rb)
+    if engine == "plain":
+        blocked, _ = plain.anyhit_plain(fs.layout.Tc, rb)
+    else:
+        blocked = ic.any_hit(fs.layout, rb)
     return ic.finish_anyhit(rb, blocked)

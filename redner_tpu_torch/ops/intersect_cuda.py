@@ -10,11 +10,13 @@ Replaces the Pallas TPU kernels of redner_tpu/ops/pallas_intersect.py:
 The kernels themselves are CUDA C++ in csrc/intersect.cu, compiled for
 sm_90a by nvcc into a shared library with a C interface at first use and
 called through ctypes.  This module also holds what the Pallas launcher did
-in XLA: the Morton-ordered coefficient layout with per-chunk AABBs
-(`coeff_layout_build`), the per-tile chunk activity mask and its per-tile
-CSR lists of active chunks, the optional Morton ray sort, and the
-epilogue (sorted index -> triangle id -> shape id, inactive-tile masking,
-undoing the ray sort).
+in XLA: the Morton-ordered coefficient layout with per-chunk AABBs and the
+kernels' per-triangle packing (`coeff_layout_build`), the per-tile chunk
+activity mask and its flat, rank-major list of active (tile, chunk) pairs
+(the kernels' work list), the optional Morton ray sort, the closest-hit
+merge key (`pack_hit_key` / `unpack_hit_key`), and the epilogue (sorted
+index -> triangle id -> shape id, inactive-tile masking, undoing the ray
+sort).
 
 `closest_hit` / `any_hit` take tensors on one device: on a CUDA tensor they
 launch the kernel (a failed build or launch raises); on a CPU tensor they
@@ -106,9 +108,9 @@ def _lib():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # (R, tmin, tmax, Tc, tile_ptr, tile_chunks, ntile, out0, out1, stream)
+        # (R, tmin, tmax, Tp, pairs, npairs, ntri, counter, out, stream)
         for fn in (lib.rt_closest_hit, lib.rt_any_hit):
-            fn.argtypes = [p, p, p, p, p, p, i, p, p, p]
+            fn.argtypes = [p, p, p, p, p, i, i, p, p, p]
             fn.restype = i
         _lib_handle = lib
     return _lib_handle
@@ -136,20 +138,39 @@ def _morton3(x):
 @dataclass
 class CoeffLayout:
     Tc: torch.Tensor  # (nchunks, 10, 4*CHUNK) f32, [det|u|v|t] column groups
+    Tp: torch.Tensor  # (nchunks*CHUNK, PACK) f32, the kernels' packing
     idx_map: torch.Tensor  # (nchunks*CHUNK,) sorted slot -> triangle id
     cl_min: torch.Tensor  # (nchunks, 3) chunk AABB
     cl_max: torch.Tensor  # (nchunks, 3)
+    ntri: int  # real triangles; sorted slots from ntri on are padding
 
     @property
     def nchunks(self):
         return self.Tc.shape[0]
 
 
+# The kernels' per-triangle packing: (feature row k, column group g) of the
+# 19 nonzero coefficients in the order csrc/intersect.cu reads them
+# (bary_test, t_test; det: k 0-2; u and v: k 0-5; t: k 6-9), then one zero
+# pad, so a triangle is five 16-byte rows.
+PACK_ROWS = ([(k, 0) for k in range(3)] + [(k, 1) for k in range(6)]
+             + [(k, 2) for k in range(6)] + [(k, 3) for k in range(6, 10)])
+PACK = len(PACK_ROWS) + 1
+
+
+def pack_coefficients(T):
+    """(F', 10, 4) coefficient blocks -> (F', PACK) kernel rows."""
+    k = torch.tensor([r[0] for r in PACK_ROWS], device=T.device)
+    g = torch.tensor([r[1] for r in PACK_ROWS], device=T.device)
+    return torch.cat([T[:, k, g], torch.zeros_like(T[:, :1, 0])], dim=1)
+
+
 def coeff_layout_build(fs) -> CoeffLayout:
     """Morton-ordered coefficient chunks, per-chunk AABBs and the sorted
     triangle-id map.  The tail chunk is padded by repeating the last sorted
     triangle; a duplicate can never win a closest hit because updates are
-    strictly-smaller and the original comes first."""
+    strictly-smaller and the original comes first (the kernels do not test
+    the padding at all)."""
     verts = fs.vertices.detach()
     f = fs.faces
     F = f.shape[0]
@@ -168,12 +189,14 @@ def coeff_layout_build(fs) -> CoeffLayout:
     tri_min = torch.minimum(torch.minimum(sv0, sv1), sv2).reshape(nchunks, CHUNK, 3)
     tri_max = torch.maximum(torch.maximum(sv0, sv1), sv2).reshape(nchunks, CHUNK, 3)
     T = triangle_coefficients(sv0, sv1, sv2)  # (F', 10, 4)
-    T = T.reshape(nchunks, CHUNK, 10, 4).permute(0, 2, 3, 1)  # (nc, 10, 4, CHUNK)
+    Tc = T.reshape(nchunks, CHUNK, 10, 4).permute(0, 2, 3, 1)  # (nc, 10, 4, CHUNK)
     return CoeffLayout(
-        Tc=T.reshape(nchunks, 10, 4 * CHUNK).contiguous(),
+        Tc=Tc.reshape(nchunks, 10, 4 * CHUNK).contiguous(),
+        Tp=pack_coefficients(T).contiguous(),
         idx_map=idx,
         cl_min=tri_min.min(dim=1).values,
         cl_max=tri_max.max(dim=1).values,
+        ntri=F,
     )
 
 
@@ -203,16 +226,17 @@ def _tile_chunk_mask(org, d, tmin, tmax, live, ntile, cl_min, cl_max,
 
 
 def _active_lists(mask):
-    """(ntile, nchunks) mask -> per-tile CSR lists of active chunks in
-    increasing chunk order: (tile_ptr (ntile+1,), tile_chunks (nnz,)),
-    int32.  Replaces the Pallas flat step table (pallas_intersect.py:458):
-    each block walks its own list instead of a global sequential grid."""
-    cnt = mask.sum(dim=1)
-    tile_ptr = torch.zeros((mask.shape[0] + 1,), dtype=torch.int64,
-                           device=mask.device)
-    tile_ptr[1:] = torch.cumsum(cnt, dim=0)
-    tile_chunks = torch.nonzero(mask)[:, 1]  # row-major: per tile, ascending
-    return tile_ptr.to(torch.int32), tile_chunks.to(torch.int32)
+    """(ntile, nchunks) mask -> the kernels' work list: (npairs, 2) int32
+    (tile, chunk) active pairs, rank-major (every tile's first active chunk,
+    then every tile's second, ...; tiles ascending within a rank), so each
+    tile's chunks come in increasing order.  The pairs of the Pallas flat
+    step table (pallas_intersect.py:458), which the kernels run in parallel
+    instead of in sequence; the any-hit kernel's settling wants a tile's
+    early chunks claimed first, the closest-hit merge is order-free."""
+    nz = torch.nonzero(mask)  # tile-major, chunks ascending
+    rank = (torch.cumsum(mask, dim=1) - 1)[nz[:, 0], nz[:, 1]]
+    order = torch.argsort(rank * mask.shape[0] + nz[:, 0])
+    return nz[order].to(torch.int32).contiguous()
 
 
 def _coherence_order(org, d, live):
@@ -239,15 +263,14 @@ class RayBatch:
     tmax: torch.Tensor  # (Npad,) f32; padded and dead lanes hold -1
     live: torch.Tensor  # (n,) bool, kernel order
     mask: torch.Tensor  # (ntile, nchunks) bool activity mask
-    tile_ptr: torch.Tensor  # (ntile+1,) int32
-    tile_chunks: torch.Tensor  # (nnz,) int32
+    pairs: torch.Tensor  # (npairs, 2) int32 work list (_active_lists)
     perm: Optional[torch.Tensor]  # (n,) kernel lane -> caller lane
     n: int
     batch: tuple
 
     @property
     def tile_active(self):
-        return self.tile_ptr[1:] > self.tile_ptr[:-1]
+        return self.mask.any(dim=1)
 
 
 def prepare_rays(fs, ray, presorted: bool = False):
@@ -284,14 +307,13 @@ def prepare_rays(fs, ray, presorted: bool = False):
     tmax_p = padv(tmax, -1.0)  # padded rays hit nothing
     mask = _tile_chunk_mask(org_p, d_p, tmin_p, tmax_p, live_p, ntile,
                             lay.cl_min, lay.cl_max)
-    tile_ptr, tile_chunks = _active_lists(mask)
     # Dead lanes (zero direction) never hit (det == 0); tmax < tmin marks
     # them settled so any-hit tiles of dead lanes can leave early.
     tmax_k = torch.where(live_p, tmax_p, torch.full_like(tmax_p, -1.0))
     return RayBatch(
         R=ray_features(org_p, d_p).contiguous(),
         tmin=tmin_p.contiguous(), tmax=tmax_k.contiguous(), live=live,
-        mask=mask, tile_ptr=tile_ptr, tile_chunks=tile_chunks, perm=perm,
+        mask=mask, pairs=_active_lists(mask), perm=perm,
         n=n, batch=tuple(ray.org.shape[:-1]),
     )
 
@@ -339,73 +361,101 @@ def finish_anyhit(rb, blocked) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# Closest-hit merge key
+# ----------------------------------------------------------------------
+
+# One int64 per lane that the closest-hit kernel merges with atomicMin:
+# order-preserving bits of t (as a signed int32, -0 taken as +0) in the
+# high word, the sorted triangle index in the low word, so a smaller key is
+# a smaller t and, at equal t, the lower index (the earliest (chunk,
+# index), the tie rule of the Pallas kernel and of closest_plain).
+# csrc/intersect.cu pack_key computes the same key.
+NO_HIT = 2**63 - 1  # above every key: the fill of lanes with no hit
+
+
+def pack_hit_key(t, idx):
+    """(best_t f32, sorted index >= 0) -> int64 merge keys."""
+    b = t.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    b = torch.where(b == -2**31, torch.zeros_like(b), b)
+    b = torch.where(b >= 0, b, b ^ 0x7FFFFFFF)
+    return b * 2**32 + idx.to(torch.int64)
+
+
+def unpack_hit_key(key):
+    """int64 merge keys -> (best_t f32, best_i int32), inf / -1 where
+    the key is NO_HIT."""
+    hit = key != NO_HIT
+    hi = key >> 32
+    b = torch.where(hi >= 0, hi, hi ^ 0x7FFFFFFF).to(torch.int32)
+    t = torch.where(hit, b.view(torch.float32), float("inf"))
+    i = torch.where(hit, (key & 0xFFFFFFFF).to(torch.int32),
+                    torch.full_like(b, -1))
+    return t, i
+
+
+# ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------
 
 
-def _check_batch(Tc, rb):
+def _launch(fn_name, lay, rb, out):
+    """Checks the inputs and launches one kernel over rb's work list into
+    out: int64 keys filled with NO_HIT (closest hit) or int32 zeros (any
+    hit)."""
     npad = rb.R.shape[0]
-    ntile = npad // TILE_N
+    out_dtype = torch.int64 if fn_name == "rt_closest_hit" else torch.int32
     for name, x, dtype, shape in (
         ("R", rb.R, torch.float32, (npad, 10)),
         ("tmin", rb.tmin, torch.float32, (npad,)),
         ("tmax", rb.tmax, torch.float32, (npad,)),
-        ("Tc", Tc, torch.float32, (Tc.shape[0], 10, 4 * CHUNK)),
-        ("tile_ptr", rb.tile_ptr, torch.int32, (ntile + 1,)),
-        ("tile_chunks", rb.tile_chunks, torch.int32, rb.tile_chunks.shape),
+        ("Tp", lay.Tp, torch.float32, (lay.nchunks * CHUNK, PACK)),
+        ("pairs", rb.pairs, torch.int32, (rb.pairs.shape[0], 2)),
+        ("out", out, out_dtype, (npad,)),
     ):
         if x.device != rb.R.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rb.R.device}")
         if x.dtype != dtype or tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return ntile
-
-
-def _launch(fn_name, Tc, rb, out0, out1):
-    ntile = _check_batch(Tc, rb)
-    chunks = rb.tile_chunks
-    if chunks.numel() == 0:  # keep a valid pointer for the C interface
-        chunks = torch.zeros((1,), dtype=torch.int32, device=rb.R.device)
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if npad % TILE_N:
+        raise ValueError(f"{npad} rays are not whole tiles of {TILE_N}")
+    counter = torch.zeros((1,), dtype=torch.int32, device=rb.R.device)
     with torch.cuda.device(rb.R.device):
         stream = torch.cuda.current_stream(rb.R.device).cuda_stream
         err = getattr(_lib(), fn_name)(
             rb.R.data_ptr(), rb.tmin.data_ptr(), rb.tmax.data_ptr(),
-            Tc.data_ptr(), rb.tile_ptr.data_ptr(), chunks.data_ptr(),
-            ntile, out0.data_ptr(), out1.data_ptr(), stream)
+            lay.Tp.data_ptr(), rb.pairs.data_ptr(), rb.pairs.shape[0],
+            lay.ntri, counter.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"redner_tpu_torch: {fn_name} launch failed "
                            f"(cudaError {err})")
 
 
-def closest_hit(Tc, rb):
-    """Closest hit per lane: (best_t (Npad,) f32, best_i (Npad,) sorted
-    triangle index or -1).  CUDA tensors: the kernel; CPU: closest_plain."""
+def closest_hit(lay, rb):
+    """Closest hit per lane of layout lay: (best_t (Npad,) f32, best_i
+    (Npad,) sorted triangle index or -1).  CUDA tensors: the kernel, with
+    no launch when no (tile, chunk) pair is active; CPU: closest_plain."""
     if not rb.R.is_cuda:
-        return closest_plain(Tc, rb)
-    npad = rb.R.shape[0]
-    best_t = torch.empty((npad,), dtype=torch.float32, device=rb.R.device)
-    best_i = torch.empty((npad,), dtype=torch.int32, device=rb.R.device)
-    if npad:
-        _launch("rt_closest_hit", Tc, rb, best_t, best_i)
+        return closest_plain(lay.Tc, rb)
+    keys = torch.full((rb.R.shape[0],), NO_HIT, dtype=torch.int64,
+                      device=rb.R.device)
+    if rb.pairs.shape[0]:
+        _launch("rt_closest_hit", lay, rb, keys)
         LAUNCHES["closest_hit"] += 1
-    return best_t, best_i
+    return unpack_hit_key(keys)
 
 
-def any_hit(Tc, rb):
-    """Any hit per lane: (blocked (Npad,), steps (ntile,) chunks each tile
-    visited before it settled).  CUDA tensors: the kernel; CPU:
-    anyhit_plain."""
+def any_hit(lay, rb):
+    """Any hit per lane of layout lay: blocked (Npad,), nonzero where the
+    segment is blocked.  CUDA tensors: the kernel, with no launch when no
+    (tile, chunk) pair is active; CPU: anyhit_plain."""
     if not rb.R.is_cuda:
-        return anyhit_plain(Tc, rb)
-    npad = rb.R.shape[0]
-    blocked = torch.empty((npad,), dtype=torch.int32, device=rb.R.device)
-    steps = torch.empty((npad // TILE_N,), dtype=torch.int32,
-                        device=rb.R.device)
-    if npad:
-        _launch("rt_any_hit", Tc, rb, blocked, steps)
+        return anyhit_plain(lay.Tc, rb)[0]
+    blocked = torch.zeros((rb.R.shape[0],), dtype=torch.int32,
+                          device=rb.R.device)
+    if rb.pairs.shape[0]:
+        _launch("rt_any_hit", lay, rb, blocked)
         LAUNCHES["any_hit"] += 1
-    return blocked, steps
-
+    return blocked

@@ -7,6 +7,8 @@ not installed; there, skip the repository's conftest (which pins JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -77,22 +79,30 @@ def test_kernels_match_plain(dev, presorted):
     assert not k.valid[:5].any() and not o[:5].any()
 
 
+def _assert_raw_match(lay, rb):
+    """Kernel outputs on batch rb equal the plain versions' exactly."""
+    best_t, best_i = ic.closest_hit(lay, rb)
+    pt, pi = plain.closest_plain(lay.Tc, rb)
+    assert torch.equal(best_i.to(torch.int64), pi)
+    assert torch.equal(best_t, pt)
+    blocked = ic.any_hit(lay, rb)
+    pb, _ = plain.anyhit_plain(lay.Tc, rb)
+    assert torch.equal(blocked != 0, pb)
+    return best_t, best_i, blocked
+
+
 @pytest.mark.cuda
 def test_any_hit_settle_points_match_plain(dev):
+    """Settling is order-free: blocked (and the closest hits) equal the
+    plain versions' lane for lane."""
     fs = rtt.flatten_scene(_scene(dev))
-    ray = _rays(dev, 4096, seed=2)
-    rb = ic.prepare_rays(fs, ray)
-    blocked, steps = ic.any_hit(fs.layout.Tc, rb)
-    pb, psteps = plain.anyhit_plain(fs.layout.Tc, rb)
-    assert torch.equal(blocked != 0, pb)
-    assert torch.equal(steps.to(torch.int64), psteps)
-    best_t, best_i = ic.closest_hit(fs.layout.Tc, rb)
-    pt, pi = plain.closest_plain(fs.layout.Tc, rb)
-    assert torch.equal(best_i.to(torch.int64), pi)
+    rb = ic.prepare_rays(fs, _rays(dev, 4096, seed=2))
+    _assert_raw_match(fs.layout, rb)
 
 
 @pytest.mark.cuda
 def test_inactive_tiles_miss(dev):
+    """No active (tile, chunk) pair: no launch, and every lane misses."""
     fs = rtt.flatten_scene(_scene(dev))
     n = 300
     ray = Ray(org=torch.tensor([0.0, 0.0, -50.0], device=dev).expand(n, 3),
@@ -100,11 +110,102 @@ def test_inactive_tiles_miss(dev):
               tmin=torch.full((n,), 1e-3, device=dev),
               tmax=torch.full((n,), float("inf"), device=dev))
     rb = ic.prepare_rays(fs, ray)
-    assert not rb.tile_active.any()
-    best_t, best_i = ic.closest_hit(fs.layout.Tc, rb)
+    assert not rb.tile_active.any() and rb.pairs.shape[0] == 0
+    ic.reset_launch_counts()
+    best_t, best_i = ic.closest_hit(fs.layout, rb)
     assert torch.isinf(best_t).all() and (best_i == -1).all()
-    blocked, steps = ic.any_hit(fs.layout.Tc, rb)
-    assert not blocked.any() and not steps.any()
+    assert not ic.any_hit(fs.layout, rb).any()
+    assert ic.LAUNCHES == {"closest_hit": 0, "any_hit": 0}
+
+
+# Scenes built straight from vertex arrays, for batches whose work list is
+# known (the CPU tests in test_torch_port_kernel_layout.py check that).
+
+
+def _layout_of(vertices, faces, device):
+    fs = SimpleNamespace(
+        vertices=torch.as_tensor(np.asarray(vertices, np.float32), device=device),
+        faces=torch.as_tensor(np.asarray(faces, np.int64), device=device))
+    fs.layout = ic.coeff_layout_build(fs)
+    return fs
+
+
+def grid_plane(device, n=64):
+    """An n x n grid of unit quads (2 n^2 triangles) at y = 0 over
+    [0, n]^2.  Morton order makes each 512-triangle chunk a 16 x 16-cell
+    block, so the chunk AABBs only touch at their borders."""
+    i, k = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+    v = np.stack([i, np.zeros_like(i), k], -1).reshape(-1, 3)
+    a = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).reshape(-1)
+    faces = np.concatenate([np.stack([a, a + 1, a + n + 1], -1),
+                            np.stack([a + 1, a + n + 2, a + n + 1], -1)])
+    return _layout_of(v, faces, device)
+
+
+def unbalanced_rays(device, seed=0, ntile=40):
+    """Rays down onto grid_plane, one 128-ray tile after another: tile 0
+    covers all 16 blocks (every chunk active), tile 1 points up (no chunk),
+    every other tile lands in one block (one chunk).  Half the lanes stop
+    short of the plane, so no any-hit tile settles early."""
+    rng = np.random.default_rng(seed)
+    n = ntile * 128
+    block = np.concatenate([np.arange(128) % 16,
+                            np.zeros(128, np.int64),
+                            np.repeat(rng.integers(0, 16, ntile - 2), 128)])
+    xz = 16.0 * np.stack([block // 4, block % 4], -1) + rng.uniform(1, 15, (n, 2))
+    org = np.stack([xz[:, 0], np.ones(n), xz[:, 1]], -1).astype(np.float32)
+    d = np.tile(np.float32([0.0, -1.0, 0.0]), (n, 1))
+    d[128:256, 1] = 1.0
+    tmax = np.where(np.arange(n) // 16 % 2, 0.5, 2.0).astype(np.float32)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return Ray(org=t(org), dir=t(d), tmin=t(np.full(n, 1e-3)), tmax=t(tmax))
+
+
+def tie_scene(device, fillers=600):
+    """Triangle A, `fillers` degenerate triangles at A's centroid, then a
+    copy of A.  All centroids coincide, so the Morton sort keeps this
+    order: A is sorted slot 0 (chunk 0), its copy slot fillers + 1
+    (chunk 1), and every ray that hits one hits both at the same t."""
+    a = np.float32([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    c = a.mean(axis=0)
+    v = np.concatenate([a, np.tile(c, (3 * fillers, 1)), a])
+    f = np.concatenate([[[0, 1, 2]],
+                        np.arange(3, 3 + 3 * fillers).reshape(-1, 3),
+                        [[3 * fillers + 3, 3 * fillers + 4, 3 * fillers + 5]]])
+    return _layout_of(v, f, device)
+
+
+def tie_rays(device, n=1000, seed=0):
+    rng = np.random.default_rng(seed)
+    xz = rng.uniform(0.02, 0.48, (n, 2))
+    org = np.stack([xz[:, 0], np.full(n, 2.0), xz[:, 1]], -1)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return Ray(org=t(org), dir=t(np.tile([0.0, -1.0, 0.0], (n, 1))),
+               tmin=t(np.full(n, 1e-3)), tmax=t(np.full(n, 10.0)))
+
+
+@pytest.mark.cuda
+def test_unbalanced_work_matches_plain(dev):
+    """One tile's list holds every chunk, the others one or none."""
+    fs = grid_plane(dev)
+    rb = ic.prepare_rays(fs, unbalanced_rays(dev), presorted=True)
+    active = rb.mask.sum(dim=1)
+    assert int(active[0]) == fs.layout.nchunks and int(active[1]) == 0
+    assert (active[2:] == 1).all()
+    best_t, best_i, blocked = _assert_raw_match(fs.layout, rb)
+    assert 0 < int((best_i >= 0).sum()) < rb.n
+    assert torch.equal(blocked != 0, best_i >= 0)
+
+
+@pytest.mark.cuda
+def test_exact_ties_take_lower_index(dev):
+    """Coincident triangles in two chunks: the lower sorted index wins."""
+    fs = tie_scene(dev)
+    rb = ic.prepare_rays(fs, tie_rays(dev), presorted=True)
+    assert rb.mask.all()
+    best_t, best_i, _ = _assert_raw_match(fs.layout, rb)
+    live = torch.arange(best_i.shape[0], device=dev) < rb.n
+    assert (best_i[live] == 0).all() and (best_t[live] == 2.0).all()
 
 
 @pytest.mark.cuda

@@ -173,13 +173,14 @@ def test_tile_mask_and_ray_sort_match_pallas(sphere, rays):
     d = tray.dir
     tperm = tic._coherence_order(tray.org, d, torch.sum(d * d, -1) > 0)
     np.testing.assert_array_equal(tperm.numpy(), np.asarray(perm))
-    # Per-tile CSR lists == the Pallas flat step table's (tile, chunk) order.
+    # The kernels' work list holds the Pallas flat step table's (tile, chunk)
+    # pairs; put back in tile-major order, it is that table.
     tile_of, chunk_of, _, num_steps, _ = jpi._flat_active_table(jnp.asarray(jmask))
-    ptr, chunks = tic._active_lists(tmask)
+    pairs = tic._active_lists(tmask).numpy().astype(np.int64)
     k = int(num_steps)
-    np.testing.assert_array_equal(chunks.numpy(), np.asarray(chunk_of)[:k])
-    rows = np.repeat(np.arange(ntile), np.diff(ptr.numpy()))
-    np.testing.assert_array_equal(rows, np.asarray(tile_of)[:k])
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    np.testing.assert_array_equal(pairs[:, 1], np.asarray(chunk_of)[:k])
+    np.testing.assert_array_equal(pairs[:, 0], np.asarray(tile_of)[:k])
 
 
 def test_inactive_tiles_and_padding(sphere):
@@ -206,7 +207,7 @@ def test_inactive_tiles_and_padding(sphere):
     rb = tic.prepare_rays(tfs, tray, presorted=True)
     blocked, steps = tplain.anyhit_plain(tfs.layout.Tc, rb)
     assert blocked[:n].all() and not blocked[n:].any()
-    active = (rb.tile_ptr[1:] - rb.tile_ptr[:-1]).to(torch.int64)
+    active = rb.mask.sum(dim=1)
     assert (steps <= active).all() and (steps >= 1).all()
     best_t, best_i = tplain.closest_plain(tfs.layout.Tc, rb)
     F = tfs.num_triangles
