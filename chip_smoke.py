@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive redner_tpu_torch's forward render on one CUDA card and hold its
-ray-query kernels against their plain PyTorch versions.
+"""Drive redner_tpu_torch's forward render and its edge-sampled gradient on
+one CUDA card and hold its ray-query kernels against their plain PyTorch
+versions.
 
 Run from the repository root with no arguments:
 
@@ -26,7 +27,21 @@ Phases (any failure exits non-zero):
              operations over 67 TFLOP/s (H100 SXM, outside the tensor
              cores); then the same for the random and on-geometry ray sets
              of phase 3;
-  6. report  one `kernels` JSON line, the nvidia-smi line, and the final
+  6. grad    the edge-sampled gradient: loss = render(...).sum() on the
+             slice at 256x256, 4 spp, 1 bounce, seed 11, both edge
+             samplers on (65,536 primary-edge samples), differentiated
+             w.r.t. the sphere's vertices, the light intensity, the
+             sphere's diffuse reflectance and the camera position.  Counts
+             the kernel launches of one gradient evaluation (forward +
+             backward; 32 closest hit + 16 any hit by the code), holds each
+             kernel against its plain version on a primary-edge chunk and a
+             secondary-edge pair batch captured from a gradient evaluation
+             (and reports the share of pairs whose two sides hit
+             differently), compares the gradient with the one through the
+             plain queries on the card (64x64) and with the CPU's (32x32),
+             and times fwd+bwd, its peak memory, a profile of one gradient
+             evaluation and each kernel per launch on the edge-pair rays;
+  7. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
 It imports nothing of JAX or redner_tpu.
@@ -215,11 +230,11 @@ def kernel_only(kind, lay, rb):
     return run, out
 
 
-def profile_forward(render, top=12):
-    """Device-side breakdown of one forward under torch.profiler: CUDA
-    kernel count, busy time and idle share of the profiled wall, and the
-    kernels that take the most time.  Diagnostics only: a profiler that
-    records no device activity prints "not measured" and fails nothing."""
+def profile_run(label, run, top=12):
+    """Device-side breakdown of one run under torch.profiler: CUDA kernel
+    count, busy time and idle share of the profiled wall, and the kernels
+    that take the most time.  Diagnostics only: a profiler that records no
+    device activity prints "not measured" and fails nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -228,7 +243,7 @@ def profile_forward(render, top=12):
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            render()
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -243,7 +258,7 @@ def profile_forward(render, top=12):
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    print(f"[profile] forward under the profiler: wall {wall_us / 1e3:.3f} ms, "
+    print(f"[profile] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, "
           f"{len(kern)} CUDA kernels, device busy {busy / 1e3:.3f} ms, idle "
           f"share {1 - busy / wall_us:.3f}", flush=True)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
@@ -407,32 +422,38 @@ def phase_times(fs, scene, opts):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
           flush=True)
     with torch.no_grad():
-        profile_forward(lambda: rtt.render_image(scene, opts, seed=SEED))
+        profile_run("forward", lambda: rtt.render_image(scene, opts, seed=SEED))
 
     # Capture each kernel's main-path inputs from one more render.
-    captured = []
-    wrappers = {"closest_hit": ic.closest_hit, "any_hit": ic.any_hit}
-
-    def recorder(kind):
-        def run(lay, rb):
-            captured.append((kind, rb))
-            return wrappers[kind](lay, rb)
-        return run
-
-    ic.closest_hit, ic.any_hit = recorder("closest_hit"), recorder("any_hit")
-    try:
-        with torch.no_grad():
-            rtt.render_image(scene, opts, seed=SEED)
-    finally:
-        ic.closest_hit, ic.any_hit = wrappers["closest_hit"], wrappers["any_hit"]
-    torch.cuda.synchronize()
-
+    with torch.no_grad():
+        captured = capture_launches(lambda: rtt.render_image(scene, opts,
+                                                             seed=SEED))
     per = {k: [] for k in REPLACES}
     for i, (kind, rb) in enumerate(captured):
         per[kind].append(measure_launch(f"launch {i}", kind, fs, rb))
     _check(len(per["closest_hit"]) == 8 and len(per["any_hit"]) == 4,
            f"captured {[(k, len(v)) for k, v in per.items()]}")
     return fwd_ms, per
+
+
+def capture_launches(run):
+    """[(kind, RayBatch)] of every kernel launch that run() makes, in order."""
+    captured = []
+    wrappers = {"closest_hit": ic.closest_hit, "any_hit": ic.any_hit}
+
+    def recorder(kind):
+        def rec(lay, rb):
+            captured.append((kind, rb))
+            return wrappers[kind](lay, rb)
+        return rec
+
+    ic.closest_hit, ic.any_hit = recorder("closest_hit"), recorder("any_hit")
+    try:
+        run()
+    finally:
+        ic.closest_hit, ic.any_hit = wrappers["closest_hit"], wrappers["any_hit"]
+    torch.cuda.synchronize()
+    return captured
 
 
 def measure_launch(label, kind, fs, rb):
@@ -489,6 +510,137 @@ def phase_sets(fs, scene, dev):
     return out
 
 
+GRAD_LEAVES = ("sphere vertices", "light intensity", "sphere diffuse",
+               "camera position")
+GRAD_RTOL = 1e-4  # kernels vs plain queries: same torch code, index_add order
+GRAD_L2_MAX = 0.05  # card vs CPU: ulp-level picks may flip a few lanes
+
+
+def gradient(scene, opts, engine=None):
+    """d render(scene).sum() / d GRAD_LEAVES, with both edge samplers."""
+    leaves = [scene.shapes[0].vertices, scene.area_lights[0].intensity,
+              scene.materials[0].diffuse_reflectance.texels,
+              scene.camera.position]
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        loss = rtt.render(scene, opts, seed=SEED, engine=engine).sum()
+        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def _pair_split(hit_a, hit_b, live):
+    """Share of live pairs whose two sides hit different triangles."""
+    n = int(live.sum())
+    return float(((hit_a != hit_b) & live).sum()) / max(n, 1), n
+
+
+def phase_grad(scene, opts, smi_line):
+    """The gradient path once with the launch counts zeroed just before and
+    read just after; then its checks and times.  Returns (launches, rows
+    per edge-pair kind and kernel, gradient ms)."""
+    dev = scene.camera.device
+    gradient(scene, opts)  # warm-up
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    grads = gradient(scene, opts)
+    torch.cuda.synchronize()
+    launches = dict(ic.LAUNCHES)
+    print(f"[grad] launches per gradient evaluation (forward + backward): "
+          f"{launches}; by the code 32 closest hit + 16 any hit", flush=True)
+    _check(all(v > 0 for v in launches.values()),
+           f"a kernel did not launch on the gradient path: {launches}")
+    for name, g in zip(GRAD_LEAVES, grads):
+        print(f"[grad] d/d {name}: shape {tuple(g.shape)}, max |g| "
+              f"{float(g.abs().max()):.6g}, L2 {float(g.norm()):.6g}",
+              flush=True)
+        _check(bool(torch.isfinite(g).all()), f"non-finite gradient: {name}")
+    _check(float(grads[0].abs().max()) > 0, "the vertex gradient is zero")
+
+    # The edge-pair rays, captured from one gradient evaluation: 12 forward
+    # launches; per re-render pass camera C, A, C then the secondary pair
+    # batch's first hit C, shadow A, bounce C; then per primary-edge chunk
+    # first hit C, shadow A, bounce C.
+    cap = capture_launches(lambda: gradient(scene, opts))
+    kinds = [k for k, _ in cap]
+    print(f"[grad] captured {len(cap)} launches: "
+          f"{''.join('C' if k == 'closest_hit' else 'A' for k in kinds)}",
+          flush=True)
+    pattern = ["closest_hit", "any_hit", "closest_hit"]
+    _check(len(cap) == 48 and kinds[15:18] == pattern
+           and kinds[36:39] == pattern and kinds[42] == "closest_hit",
+           "launch order differs from the code's; cannot locate the pairs")
+    sec, prim, prim_minus = cap[15][1], cap[36][1], cap[42][1]
+    fs = rtt.flatten_scene(scene)
+    with torch.no_grad():
+        hit = lambda rb: ic.finish_closest(
+            fs, rb, *ic.closest_hit(fs.layout, rb)).tri_id
+        h = hit(sec)
+        P = sec.n // 2
+        live = torch.zeros(sec.n, dtype=torch.bool, device=dev)
+        if sec.perm is None:
+            live = sec.live
+        else:
+            live[sec.perm] = sec.live
+        split_s, n_s = _pair_split(h[:P], h[P:], live[:P] & live[P:])
+        split_p, n_p = _pair_split(hit(prim), hit(prim_minus),
+                                   prim.live & prim_minus.live)
+    print(f"[grad] straddle share: secondary pairs {split_s:.6f} of {n_s} "
+          f"live pairs; primary-edge pairs (chunks 0 and 2) {split_p:.6f} of "
+          f"{n_p}", flush=True)
+    print(f"[grad] each kernel per launch on the edge-pair rays, on "
+          f"{smi_line}:", flush=True)
+    rows = {}
+    for kind_name, idx in (("secondary", (15, 16, 17)),
+                           ("primary", (36, 37, 38))):
+        for i, role in zip(idx, ("first hit", "shadow", "bounce")):
+            kind, rb = cap[i]
+            rows[f"{kind_name} {role}"] = dict(
+                kind=kind, **measure_launch(f"{kind_name}-edge pairs {role}",
+                                            kind, fs, rb))
+
+    # Gradient through the kernels against the plain queries on the card.
+    s64 = make_slice_scene(res=(64, 64), device=dev)
+    gk, gp = gradient(s64, opts), gradient(s64, opts, engine="plain")
+    for name, a, b in zip(GRAD_LEAVES, gk, gp):
+        tol = GRAD_RTOL * b.abs() + 1e-6 * float(b.abs().max())
+        bad = int(((a - b).abs() > tol).sum())
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"[grad] 64x64 kernels vs plain, d/d {name}: {bad}/{b.numel()} "
+              f"entries outside rtol {GRAD_RTOL}, atol 1e-6 x max; relative "
+              f"L2 {rel:.3e}", flush=True)
+        _check(bad == 0, f"gradient via kernels differs from plain: {name}")
+
+    # The card against the CPU.
+    gc = gradient(make_slice_scene(res=(32, 32), device=dev), opts)
+    gh = gradient(make_slice_scene(res=(32, 32), device="cpu"), opts)
+    for name, a, b in zip(GRAD_LEAVES, gc, gh):
+        rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"[grad] 32x32 card vs CPU, d/d {name}: relative L2 {rel:.3e}",
+              flush=True)
+        _check(rel <= GRAD_L2_MAX, f"card and CPU gradients differ: {name}")
+
+    # Times.
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gradient(scene, opts)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    grad_ms = statistics.median(walls)
+    print(f"[grad] fwd+bwd 256x256 4spp 1 bounce: median {grad_ms:.3f} ms of "
+          f"{len(walls)} (all: {', '.join(f'{w:.2f}' for w in walls)}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+          f"{smi_line}", flush=True)
+    profile_run(f"one gradient evaluation ({smi_line})",
+                lambda: gradient(scene, opts))
+    return launches, rows, grad_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -511,6 +663,7 @@ def main():
     launches = phase_render(scene, opts)
     fwd_ms, per = phase_times(fs, scene, opts)
     sets = phase_sets(fs, scene, dev)
+    grad_launches, grad_rows, grad_ms = phase_grad(scene, opts, smi_line)
 
     kernels = []
     for kind, rows in per.items():
@@ -533,6 +686,12 @@ def main():
             "forward_ms": fwd_ms,
             "ray_sets": {k.split("/")[0]: v for k, v in sets.items()
                          if k.endswith(kind)},
+            "launches_per_gradient": grad_launches[kind],
+            "gradient_ms": grad_ms,
+            "edge_pairs": {name: {k: r[k] for k in ("ms", "plain_ms",
+                                                    "bound_ms")}
+                           for name, r in grad_rows.items()
+                           if r["kind"] == kind},
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

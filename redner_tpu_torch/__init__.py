@@ -5,8 +5,10 @@ Tracing through Edge Sampling").
 Ported so far: the forward render (`render_image`) on a perspective camera,
 triangle meshes with constant materials, area lights and the independent
 sampler, with every ray query on two hand-written CUDA kernels
-(ops/intersect_cuda.py, csrc/intersect.cu).  torch.autograd through
-`render_image` gives the continuous gradients.
+(ops/intersect_cuda.py, csrc/intersect.cu); and `render`, a
+torch.autograd.Function whose backward adds primary and secondary edge
+sampling (the visibility gradients) to the continuous ones.  torch.autograd
+through `render_image` alone gives only the continuous gradients.
 
 Entry points run on the CUDA card unless given device="cpu"; the CPU path
 uses the kernels' plain PyTorch versions.  This package imports neither
@@ -25,6 +27,8 @@ from redner_tpu_torch.light import AreaLight, make_area_light  # noqa: E402
 from redner_tpu_torch.material import Material, make_material  # noqa: E402
 from redner_tpu_torch.object import Object, scene_from_objects  # noqa: E402
 from redner_tpu_torch.render import RenderOptions, render_image  # noqa: E402
+from redner_tpu_torch.render_grad import (  # noqa: E402
+    get_use_correlated_random_number, render, set_use_correlated_random_number)
 from redner_tpu_torch.sampler import SamplerType  # noqa: E402
 from redner_tpu_torch.scene import Scene, flatten_scene, make_scene  # noqa: E402
 from redner_tpu_torch.texture import make_texture  # noqa: E402
@@ -36,6 +40,7 @@ __all__ = [
     "Material", "Object", "RenderOptions", "SamplerType", "Scene", "Shape",
     "flatten_scene", "generate_quad_light", "generate_sphere",
     "make_area_light", "make_camera", "make_material", "make_scene",
-    "make_shape", "make_texture", "render_image", "resolve_device",
-    "scene_from_arrays", "scene_from_objects",
+    "make_shape", "make_texture", "get_use_correlated_random_number",
+    "render", "render_image", "resolve_device", "scene_from_arrays",
+    "scene_from_objects", "set_use_correlated_random_number",
 ]

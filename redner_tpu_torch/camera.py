@@ -188,3 +188,31 @@ def sample_primary_rays(camera: Camera, jitter: torch.Tensor,
         dir_dy=psy * (ray_dy.dir - ray.dir) / delta,
     )
     return ray, ray_diff
+
+
+# ------------------------------------------------------------------
+# Projection (world point -> screen), needed by primary edge sampling
+# (src/camera.h:731-900 `project` / `camera_to_screen`)
+# ------------------------------------------------------------------
+
+
+def camera_to_screen(camera: Camera, pt_cam: torch.Tensor):
+    """Camera-space point -> screen [0,1]^2 (+ a validity mask)."""
+    if camera.camera_type != CameraType.perspective:
+        raise _not_ported(f"camera type {camera.camera_type.name}")
+    aspect = camera.width / camera.height
+    depth_ok = pt_cam[..., 2] > 0.0
+    z = torch.where(depth_ok, pt_cam[..., 2], torch.ones_like(pt_cam[..., 2]))
+    proj = xf.mat3_apply(intrinsic_mat(camera), pt_cam / z[..., None])
+    x = proj[..., 0] * 0.5 + 0.5
+    y = proj[..., 1] * (-0.5) * aspect + 0.5
+    return torch.stack([x, y], dim=-1), depth_ok
+
+
+def project(camera: Camera, p_world: torch.Tensor):
+    """World point -> (screen [0,1]^2, clip-plane validity, camera-space
+    point); differentiable through the inverse of camera_to_world."""
+    w2c = torch.linalg.inv(camera_to_world(camera))
+    pt_cam = xf.xfm_point(w2c, p_world)
+    screen, valid = camera_to_screen(camera, pt_cam)
+    return screen, valid & (pt_cam[..., 2] > camera.clip_near), pt_cam

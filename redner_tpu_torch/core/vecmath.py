@@ -43,6 +43,10 @@ def distance(a, b):
     return length(a - b)
 
 
+def distance_squared(a, b):
+    return length_squared(a - b)
+
+
 def luminance(c):
     """Rec.709 luminance (reference: src/vector.h:506-510)."""
     return 0.212671 * c[..., 0] + 0.715160 * c[..., 1] + 0.072169 * c[..., 2]

@@ -7,13 +7,19 @@ detached, so torch autograd of `render_image` gives the continuous
 (AD-only) gradients that `jax.grad(redner_tpu.render_image)` gives.  The
 code runs eagerly: the sample loop and bounce loop are Python loops.
 
+The edge-sampling hooks are here too: `trace_radiance` and `render_sample`
+trace externally supplied rays (the edge passes' offset pairs) and, given a
+radiance adjoint, emit the secondary-edge surrogate at every bounce
+(`_secondary_edge_term`); `_render_image_impl(secondary_d_radiance=...)`
+runs that fused pass over the sample loop for render_grad.render.
+
 Not ported yet (they raise): AOV channels other than radiance, environment
-maps, the Sobol sampler, edge sampling (secondary-edge fusion, the
-custom-gradient `render`), intersection replay, remat and sharding.
+maps, the Sobol sampler, intersection replay, remat and sharding.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -27,7 +33,9 @@ from redner_tpu_torch.core import vecmath as vm
 from redner_tpu_torch.core.types import (Intersection, Ray, RayDifferential,
                                          SurfacePoint)
 from redner_tpu_torch.geometry import build_surface_point, sample_tri_point
-from redner_tpu_torch.material import bsdf, bsdf_pdf, bsdf_sample
+from redner_tpu_torch.edge import build_edge_table, secondary_edge_surrogate
+from redner_tpu_torch.material import (bsdf, bsdf_pdf, bsdf_sample,
+                                       perturb_shading_frame)
 from redner_tpu_torch.sampler import SamplerType
 from redner_tpu_torch.scene import (FlatScene, Scene, fetch_local_material,
                                     flatten_scene, gather_face_corner_attribs,
@@ -79,6 +87,15 @@ class RenderOptions:
             raise AttributeError(
                 "RenderOptions is frozen after construction; build a new one")
         object.__setattr__(self, name, value)
+
+    def _copy_with(self, **overrides):
+        """A new frozen RenderOptions with some fields replaced."""
+        new = copy.copy(self)
+        for k, v in overrides.items():
+            if not hasattr(new, k):
+                raise AttributeError(f"RenderOptions has no field {k!r}")
+            object.__setattr__(new, k, v)
+        return new
 
 
 def _surface_point_at(fs: FlatScene, isect: Intersection, ray: Ray,
@@ -282,20 +299,34 @@ def trace_radiance(
     include_primary_emission: bool = True,
     camera_ray: bool = True,
     primary_isect: Optional[Intersection] = None,
+    return_emission: bool = False,
     coherent: bool = False,
+    secondary_d_pixel=None,
+    secondary_edge_table=None,
+    precise_primary: bool = False,
     engine=None,
 ):
     """Full-path radiance estimate for arbitrary primary rays -> (n, 3)
-    (redner_tpu/render.py:572-797, without the secondary-edge, replay and
-    envmap branches).
+    (redner_tpu/render.py:572-797, without the replay and envmap branches).
 
-    lane_ids keys the RNG; dim_start is the first sample dimension drawn.
+    lane_ids keys the RNG (pixel ids for camera paths, edge-sample ids for
+    edge paths); dim_start is the first sample dimension drawn.
     coherent: rays are tile-coherent (swizzled pixels), so the ray queries
-    skip their Morton sort.  engine: see accel.intersect.
+    skip their Morton sort.  engine: see accel.intersect.  precise_primary
+    is accepted and ignored (every query is exact f32).
+
+    return_emission: also return the first-hit emission term alone, as
+    (radiance, emission); the secondary-edge pass weights it apart.
+    secondary_d_pixel: (n, 3) per-lane radiance adjoint.  When given, every
+    bounce also emits the secondary-edge surrogate from this loop's
+    intersections, light samples and materials (src/pathtracer.cpp:431-707),
+    and the return value is (radiance, surrogate scalar).
     """
     n = ray.org.shape[0]
     kw = dict(dtype=ray.org.dtype, device=ray.org.device)
     radiance = torch.zeros((n, 3), **kw)
+    primary_emission = torch.zeros((n, 3), **kw)
+    surrogate = torch.zeros((), **kw)
 
     isect = (accel.intersect(fs, ray, presorted=coherent, engine=engine)
              if primary_isect is None else primary_isect)
@@ -307,8 +338,9 @@ def trace_radiance(
         emission, _ = _face_emission(
             fs, isect.tri_id, vm.dot(-ray.dir, sp.frame_n), camera_ray=camera_ray
         )
-        radiance = radiance + torch.where(isect.valid[..., None], emission,
-                                          torch.zeros_like(emission))
+        primary_emission = torch.where(isect.valid[..., None], emission,
+                                       torch.zeros_like(emission))
+        radiance = radiance + primary_emission
 
     dim = sampler_mod.DimAllocator()
     dim.dim = dim_start
@@ -336,6 +368,7 @@ def trace_radiance(
         )
         # Every sweep below starts ON scene geometry; the port's queries are
         # exact f32 everywhere, so `precise` has nothing to select.
+        nee_dir = None
         if fs.num_lights > 0:
             light_u = sampler_mod.draw(
                 options.sampler_type, seed, lane_ids, sample_id, light_dim, 4
@@ -347,6 +380,7 @@ def trace_radiance(
             bsdf_isect = accel.intersect(fs, bsdf_ray, presorted=coherent,
                                          engine=engine)
             nee = _nee_contribution(fs, lm, sp, wi, min_rough, ls, blocked)
+            nee_dir = sray.dir
         else:
             nee = torch.zeros((n, 3), **kw)
             bsdf_isect = accel.intersect(fs, bsdf_ray, presorted=coherent,
@@ -359,6 +393,14 @@ def trace_radiance(
         contrib = throughput * (nee + scatter)
         radiance = radiance + torch.where(active[..., None], contrib,
                                           torch.zeros_like(contrib))
+
+        if secondary_d_pixel is not None:
+            surrogate = surrogate + _secondary_edge_term(
+                fs, options, seed, lane_ids, sample_id, bounce,
+                sp, lm, wi, min_rough, active, throughput,
+                secondary_d_pixel, nee_dir, secondary_edge_table,
+                engine=engine,
+            )
 
         tp = throughput * scatter_bsdf
         throughput = torch.where(active[..., None], tp, torch.zeros_like(tp))
@@ -375,7 +417,63 @@ def trace_radiance(
             torch.clamp(bsdf_isect.tri_id, 0, fs.num_triangles - 1)
         ]
         lm = fetch_local_material(fs, sp, mid)
+    if secondary_d_pixel is not None:
+        return radiance, surrogate
+    if return_emission:
+        return radiance, primary_emission
     return radiance
+
+
+# Cap on the mirror-lobe RIS kernel's relative amplitude (see
+# _secondary_edge_term).
+SPEC_KERNEL_CAP = 64.0
+
+
+def _secondary_edge_term(fs, options, seed, lane_ids, sample_id, bounce,
+                         sp, lm, wi, min_rough, active, throughput,
+                         d_pixel, nee_dir, edge_table=None, engine=None):
+    """One bounce's secondary-edge surrogate, fed from the live wavefront
+    state (redner_tpu/render.py:807-880)."""
+
+    def bsdf_eval(wo):
+        return bsdf(lm, sp, wi, wo, min_rough)
+
+    def bsdf_pdf_eval(wo):
+        return bsdf_pdf(lm, sp, wi, wo, min_rough)
+
+    with torch.no_grad():
+        # Glossy importance: a mirror-reflection lobe of the true width
+        # (alpha) and peak ratio steers the RIS kernel (the role of the
+        # reference's LTC component selection, src/edge.cpp:1403-1448).
+        _, _, pn = perturb_shading_frame(lm, sp)
+        refl = 2.0 * vm.vdot(wi, pn) * pn - wi
+        alpha = vm.clip(vm.maximum(lm.roughness, 1e-6), 0.03, 1.0)
+        lum = torch.tensor([0.2126, 0.7152, 0.0722], dtype=alpha.dtype,
+                           device=alpha.device)
+        l_spec = torch.sum(lm.specular * lum, dim=-1)
+        l_diff = torch.sum(lm.diffuse * lum, dim=-1)
+        spec_weight = vm.minimum(
+            l_spec / (alpha * alpha * vm.maximum(l_diff, 1e-2)),
+            SPEC_KERNEL_CAP)
+        # Paths already diffuse-ized by a rough bounce skip secondary edge
+        # sampling (src/edge.cpp:1396-1401).
+        sec_active = active & (min_rough <= 1e-2)
+        d_pix = throughput.detach() * d_pixel
+        nee_dir = None if nee_dir is None else nee_dir.detach()
+    return secondary_edge_surrogate(
+        fs, options, seed, sample_id,
+        sp.position, wi, bsdf_eval, trace_radiance,
+        d_pix, sec_active, nee_dir=nee_dir,
+        dim_base=100 + 32 * bounce,
+        bsdf_pdf_fn=bsdf_pdf_eval,
+        specular_dir=refl,
+        specular_sigma=alpha,
+        specular_weight=spec_weight,
+        lane_ids=lane_ids,
+        edge_table=edge_table,
+        shading_normal=pn,
+        engine=engine,
+    )
 
 
 SWIZZLE_BLOCK = (16, 32)  # (rows, cols) of one screen block of lanes
@@ -425,17 +523,32 @@ def render_sample(
     seed,
     sample_id,
     pixel_order=None,
+    primary_rays=None,
+    secondary_d_pixel=None,
+    secondary_edge_table=None,
+    precise_primary: bool = False,
+    rays_coherent: bool = False,
     engine=None,
 ):
     """Trace one sample per lane; returns the (num_lanes, C) contribution
     (unweighted; the caller averages), lane k = pixel pixel_order[k]
-    (identity when None).  The RNG is keyed by the true pixel id."""
+    (identity when None).  The RNG is keyed by the true pixel id.
+
+    primary_rays: (Ray, RayDifferential) supplied by an edge pass in place
+    of camera rays; the lanes then key the RNG directly (pixel_order holds
+    the keys).  rays_coherent: the caller guarantees such rays are
+    tile-coherent (the primary-edge samples are Morton-sorted), so every
+    ray query skips its sort.  secondary_d_pixel / secondary_edge_table go
+    to trace_radiance's fused secondary-edge pass; the return value is then
+    (contribution, surrogate scalar).  precise_primary is ignored."""
     _check_supported(options)
     ci = options.channel_info
     top, left, bottom, right = camera.viewport_or_full
     dev = fs.device
     if pixel_order is None:
-        pixel_ids = torch.arange((right - left) * (bottom - top), device=dev)
+        n = (primary_rays[0].org.shape[0] if primary_rays is not None
+             else (right - left) * (bottom - top))
+        pixel_ids = torch.arange(n, device=dev)
     else:
         pixel_ids = torch.as_tensor(pixel_order, dtype=torch.int64, device=dev)
     n = pixel_ids.shape[0]
@@ -443,25 +556,34 @@ def render_sample(
 
     dim = sampler_mod.DimAllocator()
     cam_dim = dim.next(sampler_mod.CAMERA_DIMS)
-    if options.sample_pixel_center:
-        jitter = torch.full((n, 2), 0.5, dtype=dtype, device=dev)
+    if primary_rays is None:
+        if options.sample_pixel_center:
+            jitter = torch.full((n, 2), 0.5, dtype=dtype, device=dev)
+        else:
+            jitter = sampler_mod.draw(
+                options.sampler_type, seed, pixel_ids, sample_id, cam_dim, 2
+            )
+        ray, ray_diff = sample_primary_rays(camera, jitter,
+                                            pixel_order=pixel_ids)
     else:
-        jitter = sampler_mod.draw(
-            options.sampler_type, seed, pixel_ids, sample_id, cam_dim, 2
-        )
-    ray, ray_diff = sample_primary_rays(camera, jitter, pixel_order=pixel_ids)
+        ray, ray_diff = primary_rays
 
-    # Swizzled primary rays are already tile-coherent: skip the Morton sort.
-    coherent = pixel_order is not None
+    # Swizzled camera rays are tile-coherent, and so are the edge passes'
+    # Morton-sorted pairs (rays_coherent): skip the Morton sort.
+    coherent = (primary_rays is None and pixel_order is not None) \
+        or rays_coherent
     isect = accel.intersect(fs, ray, presorted=coherent, engine=engine)
-    radiance = trace_radiance(
+    out = trace_radiance(
         fs, options, seed, pixel_ids, sample_id, ray, ray_diff,
         dim_start=dim.dim, primary_isect=isect, coherent=coherent,
-        engine=engine,
+        secondary_d_pixel=secondary_d_pixel,
+        secondary_edge_table=secondary_edge_table, engine=engine,
     )
+    radiance, surr = out if secondary_d_pixel is not None else (out, None)
     img = torch.zeros((n, ci.num_total_dimensions), dtype=dtype, device=dev)
     roff = ci.radiance_dimension
-    return torch.cat([img[:, :roff], radiance, img[:, roff + 3:]], dim=-1)
+    img = torch.cat([img[:, :roff], radiance, img[:, roff + 3:]], dim=-1)
+    return img if surr is None else (img, surr)
 
 
 def render_image(scene: Scene, options: RenderOptions, seed=0,
@@ -469,9 +591,20 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
     """Differentiable forward render -> (vh, vw, C) image on the scene's
     device (the card unless the scene was built with device="cpu").
 
-    torch.autograd through it gives the continuous gradients.
+    torch.autograd through it gives the continuous gradients;
+    render_grad.render adds the edge-sampled visibility terms.
     engine: None = the kernels on CUDA (plain versions on CPU); "plain"
     forces the plain ray queries (see accel.intersect)."""
+    return _render_image_impl(scene, options, seed, engine)
+
+
+def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
+                       engine=None, secondary_d_radiance=None):
+    """render_image's sample loop (redner_tpu/render.py:1055-1190).
+
+    secondary_d_radiance: (vh, vw, 3) radiance adjoint.  When given, the
+    loop also accumulates the secondary-edge surrogate fused into the same
+    wavefront, and the return value is (image, surrogate scalar)."""
     _check_supported(options)
     fs = flatten_scene(scene)
     camera = scene.camera
@@ -495,16 +628,35 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
     sub = torch.arange(K, device=dev)
     acc = torch.zeros((n, ci.num_total_dimensions), dtype=fs.vertices.dtype,
                       device=dev)
+    surr_total = torch.zeros((), dtype=fs.vertices.dtype, device=dev)
+    d_lane = edge_table = None
+    if secondary_d_radiance is not None:
+        # Per scene, not per sample: built once outside the loop.
+        edge_table = build_edge_table(fs)
+        d_flat = secondary_d_radiance.detach().reshape(-1, 3)
+        d_lane = d_flat[order].repeat(K, 1)  # swizzled lanes, K samples
     for pass_id in range(npass):
         sample_ids = pass_id * K + sub
-        contrib = render_sample(
-            fs, camera, options, seed, sample_ids.repeat_interleave(n),
-            pixel_order=order_t, engine=engine,
-        )
-        w = (sample_ids < spp).to(contrib.dtype)
+        w = (sample_ids < spp).to(acc.dtype)  # ragged-tail sample mask
+        if d_lane is None:
+            contrib = render_sample(
+                fs, camera, options, seed, sample_ids.repeat_interleave(n),
+                pixel_order=order_t, engine=engine,
+            )
+        else:
+            contrib, surr = render_sample(
+                fs, camera, options, seed, sample_ids.repeat_interleave(n),
+                pixel_order=order_t, engine=engine,
+                secondary_d_pixel=d_lane * w.repeat_interleave(n)[:, None],
+                secondary_edge_table=edge_table,
+            )
+            surr_total = surr_total + surr
         acc = acc + torch.sum(
             contrib.reshape(K, n, ci.num_total_dimensions) * w[:, None, None],
             dim=0)
     img = acc / options.num_samples
     img = img[torch.as_tensor(inverse_np, device=dev)]  # lane k -> order[k]
-    return img.reshape(vh, vw, ci.num_total_dimensions)
+    img = img.reshape(vh, vw, ci.num_total_dimensions)
+    if d_lane is None:
+        return img
+    return img, surr_total / options.num_samples

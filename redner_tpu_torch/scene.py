@@ -14,6 +14,7 @@ Constant-texture materials only; environment maps are not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -349,3 +350,37 @@ def fetch_local_material(fs: FlatScene, sp, material_id) -> LocalMaterial:
         compute_specular=frow[..., 10] > 0.5,
         has_normal_map=frow[..., 11] > 0.5,
     )
+
+
+# ------------------------------------------------------------------
+# Scene leaves (the tensors render_grad.render differentiates)
+# ------------------------------------------------------------------
+
+
+def _map_float_tensors(obj, fn):
+    """Rebuild obj (a Scene, its dataclasses and tuples) with every float
+    tensor t replaced by fn(t), in a fixed traversal order."""
+    if torch.is_tensor(obj):
+        return fn(obj) if obj.is_floating_point() else obj
+    if isinstance(obj, tuple):
+        return tuple(_map_float_tensors(o, fn) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _map_float_tensors(getattr(obj, f.name), fn)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def scene_leaves(scene: Scene) -> list:
+    """The scene's float tensors: camera position, look-at, up and fov,
+    each shape's vertices (and uvs, normals, colors), each material's
+    texels and uv scales, each light's intensity."""
+    out = []
+    _map_float_tensors(scene, lambda t: out.append(t) or t)
+    return out
+
+
+def scene_with_leaves(scene: Scene, leaves) -> Scene:
+    """The scene with its float tensors replaced, in scene_leaves order."""
+    it = iter(leaves)
+    return _map_float_tensors(scene, lambda t: next(it))

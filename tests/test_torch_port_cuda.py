@@ -208,6 +208,45 @@ def test_exact_ties_take_lower_index(dev):
     assert (best_i[live] == 0).all() and (best_t[live] == 2.0).all()
 
 
+def _render_grads(scene, opts, seed, weight, engine=None):
+    """The image of render and the gradients of sum(image * weight) w.r.t.
+    the first material's diffuse reflectance, the light intensity, every
+    shape's vertices and the camera position."""
+    leaves = ([scene.materials[0].diffuse_reflectance.texels,
+               scene.area_lights[0].intensity]
+              + [s.vertices for s in scene.shapes] + [scene.camera.position])
+    for x in leaves:
+        x.requires_grad_(True)
+    img = rtt.render(scene, opts, seed=seed, engine=engine)
+    grads = torch.autograd.grad(
+        torch.sum(img * torch.as_tensor(weight, device=img.device)), leaves)
+    return img.detach(), [g.cpu().numpy() for g in grads]
+
+
+@pytest.mark.cuda
+def test_render_gradient_matches_plain(dev):
+    """The edge-sampled gradient through the kernels equals the one through
+    the plain queries up to the order of the gradient's scatter-adds, and
+    the kernels launch on every ray batch: one pass of 512 lanes (2 closest
+    hit + 1 any hit) in the forward, the re-render and the secondary pairs,
+    and one chunk of primary-edge pairs."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    w = np.random.default_rng(4).uniform(0.5, 1.5, (16, 16, 3)).astype(
+        np.float32)
+    ic.reset_launch_counts()
+    img, grads = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w)
+    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    img_p, grads_p = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w,
+                                   engine="plain")
+    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    assert torch.equal(img, img_p)
+    assert np.abs(grads[2]).max() > 0  # the sphere's vertices
+    for g, gp in zip(grads, grads_p):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, gp, rtol=1e-4,
+                                   atol=1e-6 * np.abs(gp).max())
+
+
 @pytest.mark.cuda
 def test_render_matches_cpu(dev):
     opts = rtt.RenderOptions(num_samples=2, max_bounces=2)

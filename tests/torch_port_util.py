@@ -65,6 +65,53 @@ def port_scene(scene, device="cpu"):
     return rtt.scene_from_arrays(scene_arrays(scene), device=device)
 
 
+def shadow_grads_jax(scene, options, seed, weight):
+    """jax.grad of sum(redner_tpu.render(scene) * weight) w.r.t. (diffuse
+    reflectance, light intensity, per-shape vertices, camera position) of a
+    one-material, one-light scene."""
+    import jax
+    import jax.numpy as jnp
+
+    import redner_tpu as rt
+
+    def loss(params):
+        diffuse, intensity, verts, cam_pos = params
+        mat = scene.materials[0]
+        mat = mat.replace(diffuse_reflectance=mat.diffuse_reflectance.replace(
+            texels=diffuse))
+        sc = scene.replace(
+            materials=(mat,),
+            area_lights=(scene.area_lights[0].replace(intensity=intensity),),
+            shapes=tuple(s.replace(vertices=v)
+                         for s, v in zip(scene.shapes, verts)),
+            camera=scene.camera.replace(position=cam_pos))
+        return jnp.sum(rt.render(sc, options, seed=seed) * weight)
+
+    params = (scene.materials[0].diffuse_reflectance.texels,
+              scene.area_lights[0].intensity,
+              tuple(s.vertices for s in scene.shapes), scene.camera.position)
+    g_diffuse, g_int, g_verts, g_pos = jax.grad(loss)(params)
+    return [np.asarray(g_diffuse), np.asarray(g_int),
+            *(np.asarray(g) for g in g_verts), np.asarray(g_pos)]
+
+
+def shadow_grads_port(tscene, options, seed, weight, engine=None):
+    """The same gradients through redner_tpu_torch.render; also returns the
+    image."""
+    leaves = ([tscene.materials[0].diffuse_reflectance.texels,
+               tscene.area_lights[0].intensity]
+              + [s.vertices for s in tscene.shapes] + [tscene.camera.position])
+    for x in leaves:
+        x.requires_grad_(True)
+    img = rtt.render(tscene, options, seed=seed, engine=engine)
+    torch.sum(img * torch.as_tensor(weight, device=img.device)).backward()
+    grads = [x.grad.detach().cpu().numpy() for x in leaves]
+    for x in leaves:
+        x.grad = None
+        x.requires_grad_(False)
+    return img.detach(), grads
+
+
 def port_ray(ray, device="cpu"):
     t = lambda x: torch.as_tensor(np.array(x, np.float32), device=device)
     n = np.asarray(ray.org).shape[:-1]
