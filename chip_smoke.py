@@ -41,7 +41,24 @@ Phases (any failure exits non-zero):
              plain queries on the card (64x64) and with the CPU's (32x32),
              and times fwd+bwd, its peak memory, a profile of one gradient
              evaluation and each kernel per launch on the edge-pair rays;
-  7. report  one `kernels` JSON line, the nvidia-smi line, and the final
+  7. envtex  the slice's geometry with image textures and an envmap: the
+             sphere carries a 512x512x3 diffuse texture, a 512x512x1
+             roughness texture and a 512x512x3 normal map, and a 256x512x3
+             HDR envmap (sky gradient + sun lobe) lights the scene beside
+             the area light, all made from SEED (11) with numpy.  Counts the
+             launches of one forward (8 closest hit + 4 any hit: envmap
+             shadow rays share the area light's any-hit sweep) and of one
+             gradient evaluation (32 + 16) w.r.t. the sphere's vertices,
+             its diffuse texels, the envmap's texels and the light
+             intensity; checks that the background shows the envmap;
+             holds the any-hit kernel against anyhit_plain (0 differing
+             lanes) on the forward's shadow batch, whose envmap lanes
+             have tmax = inf, and times it against its bound; compares the
+             card with the CPU (32x32 image and gradient) and the gradient
+             through the kernels with the one through the plain queries
+             (64x64); times the forward and fwd+bwd, peak memory, and
+             profiles one gradient evaluation;
+  8. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
 It imports nothing of JAX or redner_tpu.
@@ -84,31 +101,87 @@ REPLACES = {"closest_hit": "redner_tpu/ops/pallas_intersect.py:164",
 PLAIN = {"closest_hit": plain.closest_plain, "any_hit": plain.anyhit_plain}
 
 
-def make_slice_scene(res=(256, 256), theta=64, phi=128, device=None):
+def make_slice_scene(res=(256, 256), theta=64, phi=128, sphere_material=None,
+                     envmap=None, device=None):
     """The slice's scene through the user path of bench.py: a UV sphere
     (generate_sphere(64, 128) = 15,748 triangles, the size of the reference
-    teapot) with the bench's constant glossy material, a floor quad and a
-    quad area light (15,752 triangles in all)."""
+    teapot) with the bench's constant glossy material unless
+    `sphere_material` is given, a floor quad and a quad area light (15,752
+    triangles in all), and `envmap` if given."""
     cam = rtt.make_camera(position=[0.0, 1.0, -4.5], look_at=[0.0, -0.2, 0.0],
                           up=[0.0, 1.0, 0.0], fov=45.0, resolution=res,
                           device=device)
     v, f, uv, n = rtt.generate_sphere(theta, phi, device=device)
-    glossy = rtt.make_material(diffuse_reflectance=[0.5, 0.5, 0.5],
-                               specular_reflectance=[0.2, 0.2, 0.2],
-                               roughness=[0.05], device=device)
+    if sphere_material is None:
+        sphere_material = rtt.make_material(
+            diffuse_reflectance=[0.5, 0.5, 0.5],
+            specular_reflectance=[0.2, 0.2, 0.2], roughness=[0.05],
+            device=device)
     gray = rtt.make_material(diffuse_reflectance=[0.4, 0.4, 0.4],
                              device=device)
     floor_v = [[-4.0, -1.0, -4.0], [4.0, -1.0, -4.0], [-4.0, -1.0, 4.0],
                [4.0, -1.0, 4.0]]
     objs = [
-        rtt.Object(vertices=v, indices=f, uvs=uv, normals=n, material=glossy),
+        rtt.Object(vertices=v, indices=f, uvs=uv, normals=n,
+                   material=sphere_material),
         rtt.Object(vertices=floor_v, indices=[[0, 2, 1], [1, 2, 3]],
                    material=gray),
         rtt.generate_quad_light(position=[0.0, 4.0, -1.0],
                                 look_at=[0.0, 0.0, 0.0], size=[2.0, 2.0],
                                 intensity=[20.0, 20.0, 20.0], device=device),
     ]
-    return rtt.scene_from_objects(cam, objs)
+    return rtt.scene_from_objects(cam, objs, envmap=envmap)
+
+
+def _smooth_noise(rng, h, w, c, octaves=4):
+    """Seeded smooth noise in [0, 1] of shape (h, w, c): a sum of random
+    sinusoids over the (u, v) torus plus a faint checker."""
+    v = (np.arange(h, dtype=np.float64)[:, None, None] + 0.5) / h
+    u = (np.arange(w, dtype=np.float64)[None, :, None] + 0.5) / w
+    out = np.zeros((h, w, c))
+    for k in range(octaves):
+        f = 2.0 ** (k + 1)
+        fu, fv = rng.integers(1, int(f) + 1, (2, c))
+        ph = rng.uniform(0, 2 * np.pi, (2, c))
+        out += (0.5 ** k) * np.sin(2 * np.pi * fu * u + ph[0]) * np.cos(
+            2 * np.pi * fv * v + ph[1])
+    checker = ((np.floor(u * 16) + np.floor(v * 16)) % 2) * 0.2
+    out = out + checker
+    return (out - out.min()) / (out.max() - out.min())
+
+
+def make_envtex_scene(res=(256, 256), theta=64, phi=128, tex=512,
+                      env=(256, 512), seed=SEED, device=None):
+    """The slice's scene with image textures and an environment map: the
+    sphere has a tex x tex x 3 diffuse texture, a tex x tex x 1 roughness
+    texture and a tex x tex x 3 normal map; an env[0] x env[1] x 3 HDR
+    envmap (sky gradient + one bright sun lobe, so that importance sampling
+    matters) lights the scene beside the quad light.  Everything is made
+    from `seed` with numpy."""
+    rng = np.random.default_rng(seed)
+    nz = _smooth_noise(rng, tex, tex, 2)
+    textured = rtt.make_material(
+        diffuse_reflectance=(0.1 + 0.8 * _smooth_noise(rng, tex, tex, 3)
+                             ).astype(np.float32),
+        specular_reflectance=[0.2, 0.2, 0.2],
+        roughness=(0.05 + 0.45 * _smooth_noise(rng, tex, tex, 1)
+                   ).astype(np.float32),
+        normal_map=np.concatenate([0.4 + 0.2 * nz, np.ones((tex, tex, 1))],
+                                  axis=-1).astype(np.float32),
+        device=device)
+    eh, ew = env
+    th = (np.arange(eh)[:, None] + 0.5) / eh
+    ph = (np.arange(ew)[None, :] + 0.5) / ew
+    sky = np.stack([0.25 + 0.5 * (1 - th), 0.35 + 0.45 * (1 - th),
+                    0.6 + 0.3 * (1 - th)], -1) * np.ones((eh, ew, 1))
+    sun_th, sun_ph = rng.uniform(0.15, 0.35), rng.uniform(0.0, 1.0)
+    dph = np.minimum(np.abs(ph - sun_ph), 1 - np.abs(ph - sun_ph))
+    sun = 200.0 * np.exp(-((th - sun_th) ** 2 + dph ** 2) / 2e-4)
+    values = (sky + sun[..., None] * np.asarray([1.0, 0.95, 0.8])
+              + rng.uniform(0, 0.02, (eh, ew, 3))).astype(np.float32)
+    envmap = rtt.make_environment_map(values, device=device)
+    return make_slice_scene(res, theta, phi, sphere_material=textured,
+                            envmap=envmap, device=device)
 
 
 def _check(cond, msg):
@@ -233,14 +306,16 @@ def kernel_only(kind, lay, rb):
 def profile_run(label, run, top=12):
     """Device-side breakdown of one run under torch.profiler: CUDA kernel
     count, busy time and idle share of the profiled wall, and the kernels
-    that take the most time.  Diagnostics only: a profiler that records no
-    device activity prints "not measured" and fails nothing."""
+    that take the most time.  Only device activity is recorded (the host's
+    op events of a 100k-kernel run cost the profiler tens of seconds to
+    collect).  Diagnostics only: a profiler that records no device activity
+    prints "not measured" and fails nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run()
@@ -263,6 +338,8 @@ def profile_run(label, run, top=12):
           f"share {1 - busy / wall_us:.3f}", flush=True)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"[profile]   {t / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
+    print(f"[profile] device activity only; the profile took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def work_bound(fs, rb, steps=None):
@@ -641,6 +718,200 @@ def phase_grad(scene, opts, smi_line):
     return launches, rows, grad_ms
 
 
+ENVTEX_LEAVES = ("sphere vertices", "sphere diffuse texels",
+                 "envmap texels", "light intensity")
+
+
+def envtex_gradient(scene, opts, engine=None):
+    """d render(scene).sum() / d ENVTEX_LEAVES, with both edge samplers."""
+    leaves = [scene.shapes[0].vertices,
+              scene.materials[0].diffuse_reflectance.texels,
+              scene.envmap.values.texels, scene.area_lights[0].intensity]
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        loss = rtt.render(scene, opts, seed=SEED, engine=engine).sum()
+        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def phase_envtex(opts, smi_line):
+    """The textured, envmap-lit path: forward and gradient launches, the
+    image and background checks, the any-hit kernel on the forward's shadow
+    batch (envmap lanes at tmax = inf), card against CPU, kernels against
+    plain queries, times and a profile.  Returns (forward launches,
+    gradient launches, shadow-batch row, forward ms, gradient ms)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lap = _Lap(t0)
+    scene = make_envtex_scene(device=dev)
+    fs = rtt.flatten_scene(scene)
+    _check(fs.num_triangles == 15752 and fs.has_envmap
+           and fs.mat_bank is not None,
+           "envtex scene: want 15752 triangles, an envmap and a bank")
+    print(f"[envtex] scene: {fs.num_triangles} triangles; bank "
+          f"{fs.mat_bank.flat.shape[0]} texels x {fs.mat_bank.channels} "
+          f"channels, {fs.mat_bank.Lmax} levels, stacks at "
+          f"{fs.mat_bank_pos}; envmap {tuple(scene.envmap.values.texels.shape)}"
+          f" ({fs.envmap.ptex.num_levels} levels); light pmf "
+          f"{[round(float(x), 6) for x in fs.light_pmf]}; built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # The forward, with the launch counts zeroed just before.
+    with torch.no_grad():
+        rtt.render_image(scene, opts, seed=SEED)  # warm-up
+        torch.cuda.synchronize()
+        ic.reset_launch_counts()
+        img = rtt.render_image(scene, opts, seed=SEED)
+        torch.cuda.synchronize()
+        fwd_launches = dict(ic.LAUNCHES)
+    print(f"[envtex] forward launches: {fwd_launches}", flush=True)
+    _check(fwd_launches == {"closest_hit": 8, "any_hit": 4},
+           f"envtex forward launches {fwd_launches}, want 8 + 4")
+    _check(tuple(img.shape) == (256, 256, 3), f"image shape {img.shape}")
+    _check(bool(torch.isfinite(img).all()), "envtex image has non-finite values")
+    _check(float(img.max()) > 0, "envtex image is black")
+
+    # Background: the envmap's camera-ray emission is the only difference
+    # between the render and one with the envmap hidden from the camera.
+    hidden = dataclasses.replace(scene, envmap=dataclasses.replace(
+        scene.envmap, directly_visible=False))
+    with torch.no_grad():
+        bg = (img - rtt.render_image(hidden, opts, seed=SEED)).amax(dim=-1)
+    env = scene.envmap.values.texels
+    share = float((bg > 0).float().mean())
+    top = bg[:16]  # the rows above the sphere and the floor
+    print(f"[envtex] 256x256 4spp: mean {float(img.mean()):.6f} max "
+          f"{float(img.max()):.4f}; the envmap shows on {share:.4f} of the "
+          f"pixels; top 16 rows: min {float(top.min()):.4f} max "
+          f"{float(top.max()):.4f} (envmap texels {float(env.min()):.4f}-"
+          f"{float(env.max()):.4f})", flush=True)
+    _check(0.05 < share < 0.95, f"envmap shows on {share} of the pixels")
+    _check(float(top.min()) >= float(env.min()) * 0.99 - 1e-6
+           and float(top.max()) <= float(env.max()) * 1.01,
+           "the top rows are not the envmap's radiance")
+
+    # The any-hit kernel on the forward's shadow batches: envmap lanes have
+    # tmax = inf.
+    with torch.no_grad():
+        cap = capture_launches(lambda: rtt.render_image(scene, opts,
+                                                        seed=SEED))
+    shadow = [rb for kind, rb in cap if kind == "any_hit"]
+    _check(len(shadow) == 4, f"captured {len(shadow)} any-hit launches")
+    for i, rb in enumerate(shadow):
+        with torch.no_grad():
+            kout = ic.any_hit(fs.layout, rb)
+            pout, _ = plain.anyhit_plain(fs.layout.Tc, rb)
+        torch.cuda.synchronize()
+        bad = int(((kout != 0) != pout).sum())
+        n_inf = int((torch.isinf(rb.tmax[: rb.n]) & rb.live).sum())
+        print(f"[envtex] shadow batch {i}: {rb.n} rays, {int(rb.live.sum())} "
+              f"live, {n_inf} with tmax = inf (envmap), {int(pout.sum())} "
+              f"blocked; {bad} lanes differ from anyhit_plain", flush=True)
+        _check(n_inf > 0, "no envmap shadow ray in the batch")
+        _check(bad == 0, f"shadow batch {i}: {bad} lanes differ")
+    shadow_row = measure_launch("envtex shadow batch 0", "any_hit", fs,
+                                shadow[0])
+
+    lap("envtex forward checks and shadow batches")
+    # The gradient, with the launch counts zeroed just before.
+    envtex_gradient(scene, opts)  # warm-up
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    grads = envtex_gradient(scene, opts)
+    torch.cuda.synchronize()
+    grad_launches = dict(ic.LAUNCHES)
+    print(f"[envtex] launches per gradient evaluation: {grad_launches}",
+          flush=True)
+    _check(grad_launches == {"closest_hit": 32, "any_hit": 16},
+           f"envtex gradient launches {grad_launches}, want 32 + 16")
+    for name, g in zip(ENVTEX_LEAVES, grads):
+        print(f"[envtex] d/d {name}: shape {tuple(g.shape)}, max |g| "
+              f"{float(g.abs().max()):.6g}, L2 {float(g.norm()):.6g}",
+              flush=True)
+        _check(bool(torch.isfinite(g).all()), f"non-finite gradient: {name}")
+        _check(float(g.abs().max()) > 0, f"zero gradient: {name}")
+
+    lap("envtex gradient launches")
+    # Card against CPU (32x32), kernels against plain queries (64x64).
+    small = dict(res=(32, 32))
+    with torch.no_grad():
+        a = rtt.render_image(make_envtex_scene(device=dev, **small), opts,
+                             seed=SEED).cpu()
+        b = rtt.render_image(make_envtex_scene(device="cpu", **small), opts,
+                             seed=SEED)
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-6 * float(b.max())).all(-1)
+    n_diff = int((~close).sum())
+    print(f"[envtex] 32x32 card vs CPU: {n_diff}/{close.numel()} pixels "
+          f"differ (rtol 1e-4)", flush=True)
+    _check(n_diff <= 0.01 * close.numel(), "envtex card and CPU renders differ")
+    gc = envtex_gradient(make_envtex_scene(device=dev, **small), opts)
+    gh = envtex_gradient(make_envtex_scene(device="cpu", **small), opts)
+    for name, x, y in zip(ENVTEX_LEAVES, gc, gh):
+        rel = float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
+        print(f"[envtex] 32x32 card vs CPU, d/d {name}: relative L2 "
+              f"{rel:.3e}", flush=True)
+        _check(rel <= GRAD_L2_MAX, f"envtex card and CPU gradients differ: "
+               f"{name}")
+    lap("envtex card vs CPU")
+    s64 = make_envtex_scene(device=dev, res=(64, 64))
+    gk = envtex_gradient(s64, opts)
+    gp = envtex_gradient(s64, opts, engine="plain")
+    for name, x, y in zip(ENVTEX_LEAVES, gk, gp):
+        tol = GRAD_RTOL * y.abs() + 1e-6 * float(y.abs().max())
+        bad = int(((x - y).abs() > tol).sum())
+        rel = float((x - y).norm() / y.norm().clamp_min(1e-30))
+        print(f"[envtex] 64x64 kernels vs plain, d/d {name}: {bad}/"
+              f"{y.numel()} entries outside rtol {GRAD_RTOL}, atol 1e-6 x "
+              f"max; relative L2 {rel:.3e}", flush=True)
+        _check(bad == 0, f"envtex gradient via kernels differs: {name}")
+
+    lap("envtex kernels vs plain")
+    # Times, on the card named by smi_line.
+    walls = []
+    with torch.no_grad():
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rtt.render_image(scene, opts, seed=SEED)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+    fwd_ms = statistics.median(walls)
+    print(f"[envtex] forward 256x256 4spp 1 bounce: median {fwd_ms:.3f} ms "
+          f"of 7 (all: {', '.join(f'{w:.2f}' for w in walls)})", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        envtex_gradient(scene, opts)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    grad_ms = statistics.median(walls)
+    print(f"[envtex] fwd+bwd 256x256 4spp 1 bounce: median {grad_ms:.3f} ms "
+          f"of 5 (all: {', '.join(f'{w:.2f}' for w in walls)}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {smi_line}",
+          flush=True)
+    lap("envtex times")
+    profile_run(f"envtex: one gradient evaluation ({smi_line})",
+                lambda: envtex_gradient(scene, opts))
+    return fwd_launches, grad_launches, shadow_row, fwd_ms, grad_ms
+
+
+class _Lap:
+    """Prints the seconds each phase took, on the host clock."""
+
+    def __init__(self, t0):
+        self.t = t0
+
+    def __call__(self, what):
+        now = time.perf_counter()
+        print(f"[timing] {what}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -660,10 +931,19 @@ def main():
     stats = phase_kernels(fs, scene, dev)
 
     opts = rtt.RenderOptions(num_samples=4, max_bounces=1)
+    lap = _Lap(t_start)
+    lap("build, device, kernels")
     launches = phase_render(scene, opts)
+    lap("render")
     fwd_ms, per = phase_times(fs, scene, opts)
+    lap("times")
     sets = phase_sets(fs, scene, dev)
+    lap("sets")
     grad_launches, grad_rows, grad_ms = phase_grad(scene, opts, smi_line)
+    lap("grad")
+    env_fwd, env_grad, env_shadow, env_fwd_ms, env_grad_ms = phase_envtex(
+        opts, smi_line)
+    lap("envtex")
 
     kernels = []
     for kind, rows in per.items():
@@ -692,7 +972,13 @@ def main():
                                                     "bound_ms")}
                            for name, r in grad_rows.items()
                            if r["kind"] == kind},
+            "envtex": {"launches": env_fwd[kind],
+                       "launches_per_gradient": env_grad[kind],
+                       "forward_ms": env_fwd_ms, "gradient_ms": env_grad_ms},
         })
+        if kind == "any_hit":
+            kernels[-1]["envtex"]["envmap_shadow_batch"] = {
+                k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

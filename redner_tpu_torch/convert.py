@@ -9,19 +9,30 @@ Python scalars:
      "shapes": [{"vertices": (V, 3), "indices": (F, 3),
                  optional "uvs", "normals", "uv_indices", "normal_indices",
                  "colors", and "material_id", "light_id": int}],
-     "materials": [{"diffuse_reflectance": (3,), "specular_reflectance": (3,),
-                    "roughness": (1,), "compute_specular_lighting",
-                    "two_sided", "use_vertex_color": bool}],
+     "materials": [{"diffuse_reflectance": (3,) or (H, W, 3),
+                    "specular_reflectance": (3,) or (H, W, 3),
+                    "roughness": (1,) or (H, W, 1),
+                    optional "normal_map": (H, W, 3),
+                    optional "<stack>_uv_scale": (2,) for any of the four,
+                    "compute_specular_lighting", "two_sided",
+                    "use_vertex_color": bool}],
      "area_lights": [{"shape_id": int, "intensity": (3,),
-                      optional "two_sided", "directly_visible": bool}]}
+                      optional "two_sided", "directly_visible": bool}],
+     optional "envmap": {"values": (H, W, 3), "env_to_world": (4, 4),
+                         optional "world_to_env": (4, 4) (default: the
+                         inverse), "uv_scale": (2,),
+                         "directly_visible": bool}}
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from redner_tpu_torch.camera import make_camera
 from redner_tpu_torch.device import resolve_device
+from redner_tpu_torch.envmap import make_environment_map
 from redner_tpu_torch.geometry import make_shape
 from redner_tpu_torch.light import make_area_light
 from redner_tpu_torch.material import Material
@@ -49,12 +60,19 @@ def scene_from_arrays(d: dict, device=None, dtype=torch.float32) -> Scene:
         )
         for s in d["shapes"]
     ]
-    tex = lambda x: make_texture(x, dtype=dtype, device=dev)
+
+    def tex(m, key):
+        if m.get(key) is None:
+            return None
+        return make_texture(m[key], uv_scale=m.get(key + "_uv_scale"),
+                            dtype=dtype, device=dev)
+
     materials = [
         Material(
-            diffuse_reflectance=tex(m["diffuse_reflectance"]),
-            specular_reflectance=tex(m["specular_reflectance"]),
-            roughness=tex(m["roughness"]),
+            diffuse_reflectance=tex(m, "diffuse_reflectance"),
+            specular_reflectance=tex(m, "specular_reflectance"),
+            roughness=tex(m, "roughness"),
+            normal_map=tex(m, "normal_map"),
             compute_specular_lighting=bool(m["compute_specular_lighting"]),
             two_sided=bool(m.get("two_sided", False)),
             use_vertex_color=bool(m.get("use_vertex_color", False)),
@@ -70,4 +88,17 @@ def scene_from_arrays(d: dict, device=None, dtype=torch.float32) -> Scene:
         )
         for l in d.get("area_lights", ())
     ]
-    return make_scene(camera, shapes, materials, area_lights=lights)
+    envmap = None
+    e = d.get("envmap")
+    if e is not None:
+        envmap = make_environment_map(
+            make_texture(e["values"], uv_scale=e.get("uv_scale"), dtype=dtype,
+                         device=dev),
+            env_to_world=e.get("env_to_world"),
+            directly_visible=bool(e.get("directly_visible", True)),
+            dtype=dtype)
+        if e.get("world_to_env") is not None:
+            envmap = dataclasses.replace(envmap, world_to_env=torch.as_tensor(
+                e["world_to_env"], dtype=dtype, device=dev))
+    return make_scene(camera, shapes, materials, area_lights=lights,
+                      envmap=envmap)

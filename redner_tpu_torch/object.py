@@ -39,7 +39,7 @@ class Object:
         self.directly_visible = directly_visible
 
 
-def scene_from_objects(camera, objects):
+def scene_from_objects(camera, objects, envmap=None):
     """Build a Scene from Objects with material dedup
     (reference pyredner/scene.py:21-68)."""
     from redner_tpu_torch.scene import make_scene
@@ -80,4 +80,5 @@ def scene_from_objects(camera, objects):
                 device=dev,
             )
         )
-    return make_scene(camera, shapes, materials, area_lights=lights)
+    return make_scene(camera, shapes, materials, area_lights=lights,
+                      envmap=envmap)

@@ -13,8 +13,8 @@ radiance adjoint, emit the secondary-edge surrogate at every bounce
 (`_secondary_edge_term`); `_render_image_impl(secondary_d_radiance=...)`
 runs that fused pass over the sample loop for render_grad.render.
 
-Not ported yet (they raise): AOV channels other than radiance, environment
-maps, the Sobol sampler, intersection replay, remat and sharding.
+Not ported yet (they raise): AOV channels other than radiance, the Sobol
+sampler, intersection replay, remat and sharding.
 """
 
 from __future__ import annotations
@@ -32,8 +32,9 @@ from redner_tpu_torch.channels import ChannelInfo, Channels
 from redner_tpu_torch.core import vecmath as vm
 from redner_tpu_torch.core.types import (Intersection, Ray, RayDifferential,
                                          SurfacePoint)
-from redner_tpu_torch.geometry import build_surface_point, sample_tri_point
 from redner_tpu_torch.edge import build_edge_table, secondary_edge_surrogate
+from redner_tpu_torch.envmap import envmap_eval, envmap_pdf, envmap_sample
+from redner_tpu_torch.geometry import build_surface_point, sample_tri_point
 from redner_tpu_torch.material import (bsdf, bsdf_pdf, bsdf_sample,
                                        perturb_shading_frame)
 from redner_tpu_torch.sampler import SamplerType
@@ -167,68 +168,99 @@ def _sample_light_point(fs: FlatScene, sp_pos, light_uniforms):
     """NEE light/triangle/point selection (src/scene.cpp:692-759).
 
     light_uniforms: (n, 4) = (light_sel, tri_sel, uv0, uv1).
-    Returns a dict with the shadow Ray and the light point data."""
+    Returns a dict with the shadow Ray, the light point data and is_env.
+    A lane that picked the envmap (the last light slot) gets an envmap
+    sample and a shadow ray to infinity in the same batch."""
     n = sp_pos.shape[0]
     kw = dict(dtype=sp_pos.dtype, device=sp_pos.device)
     light_id = torch.clamp(
         vm.searchsorted_right(fs.light_cdf, light_uniforms[:, 0]) - 1,
         0, fs.num_lights - 1,
     )
-    lidx = torch.clamp(light_id, 0, fs.num_area_lights - 1)
-    row_cdf = fs.light_tri_cdf[lidx]  # (n, Tmax)
-    tri_ofs = torch.clamp(
-        vm.searchsorted_right(row_cdf, light_uniforms[:, 1]) - 1,
-        0, row_cdf.shape[-1] - 1,
-    )
-    face = fs.light_tri_face[lidx, tri_ofs]
-    v0, v1, v2 = gather_face_vertices(fs, face)
-    lpos, lnormal, _ = sample_tri_point(v0, v1, v2, light_uniforms[:, 2:4])
-    # The light-sample chain is frozen w.r.t. light geometry: AD carries only
-    # the smooth integrand terms; the secondary-edge pass supplies the
-    # boundary term (redner_tpu/render.py:369-379).
-    lpos = lpos.detach()
-    lnormal = lnormal.detach()
-    ldir = lpos - sp_pos
-    dist = vm.length(ldir)
-    wo = vm.normalize(ldir)
-    shadow_ray = Ray(
-        org=sp_pos,
-        dir=wo,
-        tmin=torch.full((n,), 1e-3, **kw),
-        tmax=(1.0 - 1e-3) * dist.detach(),
-    )
-    return {
-        "area_light_id": lidx,
-        "light_pos": lpos,
-        "light_normal": lnormal,
-        "shadow_ray": shadow_ray,
-    }
+    is_env = (light_id == fs.num_lights - 1) if fs.has_envmap \
+        else torch.zeros((n,), dtype=torch.bool, device=sp_pos.device)
+    tmin = torch.full((n,), 1e-3, **kw)
+    out = {"is_env": is_env}
+    if fs.num_area_lights > 0:
+        lidx = torch.clamp(light_id, 0, fs.num_area_lights - 1)
+        row_cdf = fs.light_tri_cdf[lidx]  # (n, Tmax)
+        tri_ofs = torch.clamp(
+            vm.searchsorted_right(row_cdf, light_uniforms[:, 1]) - 1,
+            0, row_cdf.shape[-1] - 1,
+        )
+        face = fs.light_tri_face[lidx, tri_ofs]
+        v0, v1, v2 = gather_face_vertices(fs, face)
+        lpos, lnormal, _ = sample_tri_point(v0, v1, v2,
+                                            light_uniforms[:, 2:4])
+        # The light-sample chain is frozen w.r.t. light geometry: AD
+        # carries only the smooth integrand terms; the secondary-edge pass
+        # supplies the boundary term (redner_tpu/render.py:369-379).
+        lpos = lpos.detach()
+        lnormal = lnormal.detach()
+        ldir = lpos - sp_pos
+        out.update(area_light_id=lidx, light_pos=lpos, light_normal=lnormal)
+        shadow_ray = Ray(org=sp_pos, dir=vm.normalize(ldir), tmin=tmin,
+                         tmax=(1.0 - 1e-3) * vm.length(ldir).detach())
+    if fs.has_envmap:
+        env_dir = envmap_sample(fs.envmap, light_uniforms[:, 2:4])
+        out["env_dir"] = env_dir
+        inf = torch.full((n,), float("inf"), **kw)
+        if fs.num_area_lights > 0:
+            m = is_env[..., None]
+            shadow_ray = Ray(org=sp_pos,
+                             dir=torch.where(m, env_dir, shadow_ray.dir),
+                             tmin=tmin,
+                             tmax=torch.where(is_env, inf, shadow_ray.tmax))
+        else:
+            shadow_ray = Ray(org=sp_pos, dir=env_dir, tmin=tmin, tmax=inf)
+    out["shadow_ray"] = shadow_ray
+    return out
 
 
 def _nee_contribution(fs, lm, sp, wi, min_rough, ls, blocked):
     """NEE contribution with MIS (src/path_contribution.cpp:28-70)."""
-    lidx = ls["area_light_id"]
-    lpos = ls["light_pos"]
-    lnormal = ls["light_normal"]
-    dirv = lpos - sp.position
-    dist_sq = vm.length_squared(dirv)
-    ok = dist_sq > 1e-20
-    wo = vm.normalize(dirv)
-    intensity = fs.light_intensity[lidx]
-    two_sided = fs.light_two_sided[lidx]
-    front = two_sided | (vm.dot(-wo, lnormal) > 0)
-    bsdf_val = bsdf(lm, sp, wi, wo, min_rough)
-    geom_term = vm.safe_div(torch.abs(vm.dot(wo, lnormal)), dist_sq)
-    pdf_nee = vm.safe_div(fs.light_pmf[lidx], fs.light_areas[lidx])
-    pdf_b = bsdf_pdf(lm, sp, wi, wo, min_rough) * geom_term
-    mis = 1.0 / (1.0 + vm.square(vm.safe_div(pdf_b, pdf_nee)))
-    contrib = (
-        (mis * geom_term * vm.safe_div(torch.ones_like(pdf_nee), pdf_nee))[..., None]
-        * bsdf_val
-        * intensity
-    )
-    ok = ok & front & (pdf_nee > 0) & ~blocked
-    return torch.where(ok[..., None], contrib, torch.zeros_like(contrib))
+    nee = torch.zeros_like(wi)
+    if fs.num_area_lights > 0:
+        lidx = ls["area_light_id"]
+        lpos = ls["light_pos"]
+        lnormal = ls["light_normal"]
+        dirv = lpos - sp.position
+        dist_sq = vm.length_squared(dirv)
+        ok = dist_sq > 1e-20
+        wo = vm.normalize(dirv)
+        intensity = fs.light_intensity[lidx]
+        two_sided = fs.light_two_sided[lidx]
+        front = two_sided | (vm.dot(-wo, lnormal) > 0)
+        bsdf_val = bsdf(lm, sp, wi, wo, min_rough)
+        geom_term = vm.safe_div(torch.abs(vm.dot(wo, lnormal)), dist_sq)
+        pdf_nee = vm.safe_div(fs.light_pmf[lidx], fs.light_areas[lidx])
+        pdf_b = bsdf_pdf(lm, sp, wi, wo, min_rough) * geom_term
+        mis = 1.0 / (1.0 + vm.square(vm.safe_div(pdf_b, pdf_nee)))
+        contrib = (
+            (mis * geom_term
+             * vm.safe_div(torch.ones_like(pdf_nee), pdf_nee))[..., None]
+            * bsdf_val
+            * intensity
+        )
+        ok = ok & front & (pdf_nee > 0) & ~ls["is_env"] & ~blocked
+        nee = nee + torch.where(ok[..., None], contrib,
+                                torch.zeros_like(contrib))
+    if fs.has_envmap:
+        wo = ls["env_dir"]
+        pdf_nee = envmap_pdf(fs.envmap, wo) * fs.light_pmf[fs.num_lights - 1]
+        ok = (pdf_nee > 0) & ls["is_env"] & ~blocked
+        bsdf_val = bsdf(lm, sp, wi, wo, min_rough)
+        light_contrib = envmap_eval(
+            fs.envmap, wo, RayDifferential.zero(wo.shape[:-1], wo.dtype,
+                                                wo.device))
+        pdf_b = bsdf_pdf(lm, sp, wi, wo, min_rough)
+        mis = 1.0 / (1.0 + vm.square(vm.safe_div(pdf_b, pdf_nee)))
+        contrib = (mis * vm.safe_div(torch.ones_like(pdf_nee),
+                                     pdf_nee))[..., None] * (
+            bsdf_val * light_contrib)
+        nee = nee + torch.where(ok[..., None], contrib,
+                                torch.zeros_like(contrib))
+    return nee
 
 
 def _face_emission_nee(fs, isect, wo, sp_light):
@@ -248,20 +280,21 @@ def _face_emission_nee(fs, isect, wo, sp_light):
                        torch.zeros_like(intensity)), ok
 
 
-def _scatter_contribution(fs, lm, sp, wi, min_rough, bsdf_isect, bsdf_sp):
+def _scatter_contribution(fs, lm, sp, wi, min_rough, bsdf_ray, bsdf_isect,
+                          bsdf_sp):
     """BSDF-sampling contribution with MIS + throughput update factor
     (src/path_contribution.cpp:71-127).  Returns (scatter_contrib (n,3),
-    scatter_bsdf (n,3) = bsdf/pdf for the throughput update)."""
+    scatter_bsdf (n,3) = bsdf/pdf for the throughput update).  A ray that
+    escapes picks up the envmap."""
     hit = bsdf_isect.valid
     dirv = bsdf_sp.position - sp.position
     dist_sq = vm.length_squared(dirv)
     # Missed rays re-derive a point that can coincide with the shading
     # plane; normalize(~0) has NaN derivatives that leak through where.
     dir_ok = hit & (dist_sq > 1e-20)
-    safe_dirv = torch.where(
-        dir_ok[..., None], dirv,
-        torch.tensor([0.0, 0.0, 1.0], dtype=dirv.dtype, device=dirv.device),
-    )
+    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=dirv.dtype,
+                          device=dirv.device)
+    safe_dirv = torch.where(dir_ok[..., None], dirv, z_axis)
     wo_hit = vm.normalize(safe_dirv)
     pdf_b_hit = bsdf_pdf(lm, sp, wi, wo_hit, min_rough)
     ok_hit = dir_ok & (pdf_b_hit > 1e-20)
@@ -284,6 +317,29 @@ def _scatter_contribution(fs, lm, sp, wi, min_rough, bsdf_isect, bsdf_sp):
         )
     sb = bsdf_val_hit * inv_pdf_b[..., None]
     scatter_bsdf = torch.where(ok_hit[..., None], sb, torch.zeros_like(sb))
+
+    if fs.has_envmap:
+        # The escaped ray hits the environment (the path ends).
+        wo_env = bsdf_ray.dir
+        pdf_b_env = bsdf_pdf(lm, sp, wi, wo_env, min_rough)
+        ok_env = (~hit) & (vm.length_squared(wo_env) > 0) & (pdf_b_env > 1e-20)
+        bsdf_val_env = bsdf(lm, sp, wi, wo_env, min_rough)
+        # Sanitize masked lanes before the spherical-coordinate math: the
+        # atan2/acos of a zero direction has NaN derivatives that leak
+        # through torch.where (double-where guard).
+        safe_wo_env = torch.where(ok_env[..., None], wo_env, z_axis)
+        light_contrib = envmap_eval(
+            fs.envmap, safe_wo_env,
+            RayDifferential.zero(wo_env.shape[:-1], wo_env.dtype,
+                                 wo_env.device))
+        pdf_nee = envmap_pdf(fs.envmap, safe_wo_env) \
+            * fs.light_pmf[fs.num_lights - 1]
+        mis = 1.0 / (1.0 + vm.square(vm.safe_div(pdf_nee, pdf_b_env)))
+        contrib = (mis * vm.safe_div(torch.ones_like(pdf_b_env),
+                                     pdf_b_env))[..., None] * (
+            bsdf_val_env * light_contrib)
+        scatter = scatter + torch.where(ok_env[..., None], contrib,
+                                        torch.zeros_like(contrib))
     return scatter, scatter_bsdf
 
 
@@ -307,7 +363,7 @@ def trace_radiance(
     engine=None,
 ):
     """Full-path radiance estimate for arbitrary primary rays -> (n, 3)
-    (redner_tpu/render.py:572-797, without the replay and envmap branches).
+    (redner_tpu/render.py:572-797, without the replay branch).
 
     lane_ids keys the RNG (pixel ids for camera paths, edge-sample ids for
     edge paths); dim_start is the first sample dimension drawn.
@@ -340,6 +396,14 @@ def trace_radiance(
         )
         primary_emission = torch.where(isect.valid[..., None], emission,
                                        torch.zeros_like(emission))
+        if fs.has_envmap and (fs.envmap.directly_visible or not camera_ray):
+            miss = (torch.sum(ray.dir * ray.dir, dim=-1) > 0) & ~isect.valid
+            safe_dir = torch.where(
+                miss[..., None], ray.dir,
+                torch.tensor([0.0, 0.0, 1.0], **kw))
+            env = envmap_eval(fs.envmap, safe_dir, ray_diff)
+            primary_emission = torch.where(miss[..., None], env,
+                                           primary_emission)
         radiance = radiance + primary_emission
 
     dim = sampler_mod.DimAllocator()
@@ -388,7 +452,7 @@ def trace_radiance(
         bsdf_sp, bsdf_diff = _surface_point_at(fs, bsdf_isect, bsdf_ray, wo_diff)
 
         scatter, scatter_bsdf = _scatter_contribution(
-            fs, lm, sp, wi, min_rough, bsdf_isect, bsdf_sp
+            fs, lm, sp, wi, min_rough, bsdf_ray, bsdf_isect, bsdf_sp
         )
         contrib = throughput * (nee + scatter)
         radiance = radiance + torch.where(active[..., None], contrib,

@@ -1,15 +1,18 @@
 """Scene model and the render-ready flattened scene (port of
 redner_tpu/scene.py; reference pyredner/scene.py, src/scene.cpp:63-307).
 
-  * `Scene` is the user-facing bundle of Camera/Shape/Material/AreaLight.
+  * `Scene` is the user-facing bundle of Camera/Shape/Material/AreaLight/
+    EnvironmentMap.
   * `FlatScene` holds structure-of-arrays buffers built differentiably from
     a Scene on every render, so autograd chains from the flat buffers back
-    to the user's leaf tensors.  It also carries the ray-query kernels'
+    to the user's leaf tensors: face rows, material tables (constant stacks
+    as value tables, textured stacks through one MaterialBank), light
+    tables and the packed envmap.  It also carries the ray-query kernels'
     coefficient layout, built once per flatten.
 
-Sampling tables (light PMF/CDF, triangle area CDFs) are detached, matching
-the reference, which returns no gradients for them (SURVEY A.3).
-Constant-texture materials only; environment maps are not ported yet.
+Sampling tables (light PMF/CDF, triangle area CDFs, envmap CDFs) are
+detached, matching the reference, which returns no gradients for them
+(SURVEY A.3).
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import torch
 
 from redner_tpu_torch.camera import Camera
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.envmap import EnvironmentMap, PackedEnvmap, pack_envmap
 from redner_tpu_torch.geometry import Shape, tri_areas
 from redner_tpu_torch.light import AreaLight
 from redner_tpu_torch.material import LocalMaterial, Material
-from redner_tpu_torch.texture import pack_texture
+from redner_tpu_torch.texture import (MaterialBank, bank_eval,
+                                      pack_material_bank, pack_texture)
 
 
 @dataclass
@@ -34,18 +39,20 @@ class Scene:
     shapes: Tuple[Shape, ...]
     materials: Tuple[Material, ...]
     area_lights: Tuple[AreaLight, ...] = ()
+    envmap: Optional[EnvironmentMap] = None
+
+    @property
+    def num_lights(self):
+        return len(self.area_lights) + (1 if self.envmap is not None else 0)
 
 
 def make_scene(camera, shapes, materials, area_lights=(), envmap=None) -> Scene:
-    if envmap is not None:
-        raise NotImplementedError(
-            "redner_tpu_torch: environment maps are not ported yet "
-            "(ROADMAP queue A)")
     return Scene(
         camera=camera,
         shapes=tuple(shapes),
         materials=tuple(materials),
         area_lights=tuple(area_lights),
+        envmap=envmap,
     )
 
 
@@ -66,22 +73,32 @@ class FlatScene:
     # uv0|uv1|uv2 (6), c0|c1|c2 (9), has_normals (1)] = 34 floats.
     face_pack: torch.Tensor  # (F, 34)
 
-    # Materials: per fetch stack (diffuse, specular, roughness, normal map)
-    # an (M, C) table of constant values.
-    mat_const: Tuple[torch.Tensor, ...]
+    # Materials, per fetch stack (0 diffuse, 1 specular, 2 roughness,
+    # 3 normal map): a stack whose materials are all constant is an (M, C)
+    # value table in mat_const; every other stack goes through ONE
+    # MaterialBank, indexed by (stack, material id) through mat_itab's
+    # fused int row per material (one row gather per lane for all stacks).
+    mat_const: Tuple[Optional[torch.Tensor], ...]  # per stack (M, C) | None
     # (M, 12) float row: [uv_scale x4 stacks (8), two_sided,
     # use_vertex_color, compute_specular, has_normal_map].
     mat_ftab: torch.Tensor
+    mat_bank: Optional[MaterialBank]
+    mat_itab: Optional[torch.Tensor]  # (M, n_bank_stacks*(1+3*Lmax)) int64
+    # Per stack, its row-block position in mat_itab, or -1 (constant).
+    mat_bank_pos: Tuple[int, ...]
 
     # Lights
     light_intensity: torch.Tensor  # (L, 3)
     light_two_sided: torch.Tensor  # (L,) bool
     light_directly_visible: torch.Tensor  # (L,) bool
-    light_pmf: torch.Tensor  # (L,)
-    light_cdf: torch.Tensor  # (L,) exclusive scan of pmf
+    light_pmf: torch.Tensor  # (num_lights,), the envmap's slot last
+    light_cdf: torch.Tensor  # (num_lights,) exclusive scan of pmf
     light_areas: torch.Tensor  # (L,)
     light_tri_cdf: torch.Tensor  # (L, Tmax) exclusive area CDF, 2.0-padded
     light_tri_face: torch.Tensor  # (L, Tmax) global face id (clamped)
+
+    # Environment
+    envmap: Optional[PackedEnvmap]
 
     # Bounds
     bsphere_center: torch.Tensor  # (3,)
@@ -90,6 +107,7 @@ class FlatScene:
     # Static metadata
     num_materials: int
     num_area_lights: int
+    has_envmap: bool
 
     # The ray-query kernels' Morton-ordered coefficient layout
     # (ops.intersect_cuda.CoeffLayout), built once per flatten.
@@ -101,7 +119,7 @@ class FlatScene:
 
     @property
     def num_lights(self):
-        return self.num_area_lights
+        return self.num_area_lights + (1 if self.has_envmap else 0)
 
     @property
     def device(self):
@@ -163,24 +181,40 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
     face_has_normals = torch.cat(hn_parts, dim=0)
     face_colors = torch.cat(c_parts, dim=0)
 
-    # Materials: 4 fetch stacks (diffuse, specular, roughness, normal), each
-    # an (M, C) table of constants (pack_texture raises on image textures).
+    # Materials: 4 fetch stacks (diffuse, specular, roughness, normal).
     stacks = [
         [pack_texture(m.diffuse_reflectance) for m in materials],
         [pack_texture(m.specular_reflectance) for m in materials],
         [pack_texture(m.roughness) for m in materials],
-        [None for m in materials],  # normal maps: not ported yet
+        [pack_texture(m.normal_map) if m.normal_map is not None else None
+         for m in materials],
     ]
-    mat_const = []
+    mat_const, bank_stacks, mat_bank_pos = [], [], []
     for stack in stacks:
-        C = max((p.channels for p in stack if p is not None), default=1)
-        rows = []
-        for p in stack:
-            val = p.flat[0] if p is not None else torch.zeros((C,), **kw)
-            if val.shape[-1] < C:
-                val = torch.cat([val, torch.zeros((C - val.shape[-1],), **kw)])
-            rows.append(val)
-        mat_const.append(torch.stack(rows))
+        if all(p is None or p.is_constant for p in stack):
+            C = max((p.channels for p in stack if p is not None), default=1)
+            rows = []
+            for p in stack:
+                val = p.flat[0] if p is not None else torch.zeros((C,), **kw)
+                if val.shape[-1] < C:
+                    val = torch.cat([val,
+                                     torch.zeros((C - val.shape[-1],), **kw)])
+                rows.append(val)
+            mat_const.append(torch.stack(rows))
+            mat_bank_pos.append(-1)
+        else:
+            mat_const.append(None)
+            mat_bank_pos.append(len(bank_stacks))
+            bank_stacks.append(stack)
+    if bank_stacks:
+        mat_bank = pack_material_bank(bank_stacks)
+        M = len(materials)
+        Wrow = mat_bank.tab.shape[-1]
+        # (S', M, W) -> (M, S'*W): one fused int row per material.
+        mat_itab = (mat_bank.tab.reshape(len(bank_stacks), M, Wrow)
+                    .permute(1, 0, 2).reshape(M, len(bank_stacks) * Wrow))
+    else:
+        mat_bank = mat_itab = None
     uvs_cols = [
         torch.stack([
             (p.uv_scale if p is not None
@@ -251,6 +285,12 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         light_areas = torch.zeros((0,), **kw)
         power = torch.zeros((0,), **kw)
 
+    penv = pack_envmap(scene.envmap) if scene.envmap is not None else None
+    if penv is not None:
+        surface_area = 4.0 * torch.pi * vm.square(bradius)
+        env_power = torch.where(surface_area > 0, surface_area / penv.pdf_norm,
+                                torch.ones_like(surface_area))
+        power = torch.cat([power, env_power[None]])
     total_power = vm.maximum(torch.sum(power), 1e-20)
     light_pmf = (power / total_power).detach()
     light_cdf = (torch.cumsum(light_pmf, dim=0) - light_pmf).detach()
@@ -277,6 +317,9 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         face_light_id=face_light_id,
         mat_const=tuple(mat_const),
         mat_ftab=mat_ftab,
+        mat_bank=mat_bank,
+        mat_itab=mat_itab,
+        mat_bank_pos=tuple(mat_bank_pos),
         light_intensity=light_intensity,
         light_two_sided=light_two_sided,
         light_directly_visible=light_directly_visible,
@@ -285,10 +328,12 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         light_areas=light_areas,
         light_tri_cdf=light_tri_cdf,
         light_tri_face=light_tri_face,
+        envmap=penv,
         bsphere_center=bcenter,
         bsphere_radius=bradius,
         num_materials=len(materials),
         num_area_lights=L,
+        has_envmap=penv is not None,
     )
     from redner_tpu_torch.ops.intersect_cuda import coeff_layout_build
 
@@ -324,14 +369,25 @@ def gather_face_corner_attribs(fs: FlatScene, tri_id):
 
 
 def fetch_local_material(fs: FlatScene, sp, material_id) -> LocalMaterial:
-    """Per-lane material values and flags for shading: one row gather per
-    constant stack (the JAX package's one-hot matmul selects the same rows
-    exactly) plus one flag-row gather."""
+    """Per-lane material values and flags for shading (the reference's
+    per-pixel material pointer fetch, src/texture.h:53-141): one row gather
+    per constant stack (the JAX package's one-hot matmul selects the same
+    rows exactly), one flag-row gather, and for textured stacks one int-row
+    gather shared by all of them plus the bank's 8 texel taps per stack."""
     mid = torch.clamp(material_id, 0, fs.num_materials - 1)
+    uv, du, dv = sp.uv, sp.du_dxy, sp.dv_dxy
     frow = fs.mat_ftab[mid]  # (..., 12)
+    irow = fs.mat_itab[mid] if fs.mat_itab is not None else None
+    Wrow = fs.mat_bank.tab.shape[-1] if fs.mat_bank is not None else 0
 
     def stack_val(k, channels):
-        val = fs.mat_const[k][mid]
+        pos = fs.mat_bank_pos[k]
+        if pos < 0:
+            val = fs.mat_const[k][mid]
+        else:
+            uvs = frow[..., 2 * k:2 * k + 2]
+            val = bank_eval(fs.mat_bank, irow[..., pos * Wrow:(pos + 1) * Wrow],
+                            uv * uvs, du * uvs[..., 0:1], dv * uvs[..., 1:2])
         if val.shape[-1] < channels:
             val = torch.cat(
                 [val, torch.zeros(val.shape[:-1] + (channels - val.shape[-1],),
@@ -372,9 +428,11 @@ def _map_float_tensors(obj, fn):
 
 
 def scene_leaves(scene: Scene) -> list:
-    """The scene's float tensors: camera position, look-at, up and fov,
-    each shape's vertices (and uvs, normals, colors), each material's
-    texels and uv scales, each light's intensity."""
+    """The scene's float tensors, in a fixed order: camera position,
+    look-at, up and fov; each shape's vertices (and uvs, normals, colors);
+    each material's texels and uv scales (diffuse, specular, roughness,
+    normal map); each light's intensity; the envmap's
+    texels, uv scale, env_to_world and world_to_env."""
     out = []
     _map_float_tensors(scene, lambda t: out.append(t) or t)
     return out

@@ -21,6 +21,7 @@ from redner_tpu_torch import camera as tcam
 from redner_tpu_torch import sampler as tsampler
 from redner_tpu_torch.core import transform as txf
 from redner_tpu_torch.core import vecmath as tvm
+from tests.torch_port_util import two_torch_threads  # noqa: F401
 
 CPU = "cpu"
 

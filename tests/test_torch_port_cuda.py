@@ -256,3 +256,45 @@ def test_render_matches_cpu(dev):
     ref = rtt.render_image(_scene("cpu", res=(16, 16)), opts, seed=5)
     close = torch.isclose(img, ref, rtol=1e-4, atol=1e-6 * float(ref.max()))
     assert int((~close.all(-1)).sum()) <= 2
+
+
+@pytest.mark.cuda
+def test_any_hit_infinite_tmax_from_surface_points(dev):
+    """Envmap shadow rays: from points on the scene's triangles, to
+    tmax = inf (the any-hit kernel's only infinite segments); the kernels
+    equal the plain versions lane for lane."""
+    fs = rtt.flatten_scene(_scene(dev))
+    rng = np.random.default_rng(6)
+    n = 5000
+    faces = fs.faces.cpu().numpy()
+    verts = fs.vertices.detach().cpu().numpy()
+    tri = rng.integers(0, faces.shape[0], n)
+    b = rng.dirichlet([1.0, 1.0, 1.0], n).astype(np.float32)
+    on = (b[:, :1] * verts[faces[tri, 0]] + b[:, 1:2] * verts[faces[tri, 1]]
+          + b[:, 2:3] * verts[faces[tri, 2]]).astype(np.float32)
+    ray = _rays(dev, n, seed=7, on=on)
+    ray.tmax = torch.full((n,), float("inf"), device=dev)
+    rb = ic.prepare_rays(fs, ray)
+    _, _, blocked = _assert_raw_match(fs.layout, rb)
+    assert 0 < int((blocked != 0).sum()) < rb.n
+
+
+@pytest.mark.cuda
+def test_textured_envmap_render_gradient_matches_plain(dev):
+    """A textured, normal-mapped sphere under an envmap and an area light:
+    the edge-sampled gradient through the kernels equals the one through
+    the plain queries up to the order of the gradient's scatter-adds."""
+    from chip_smoke import envtex_gradient, make_envtex_scene
+
+    kw = dict(res=(16, 16), theta=16, phi=32, tex=64, env=(32, 64))
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    ic.reset_launch_counts()
+    got = envtex_gradient(make_envtex_scene(device=dev, **kw), opts)
+    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    ref = envtex_gradient(make_envtex_scene(device=dev, **kw), opts,
+                          engine="plain")
+    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    for g, r in zip(got, ref):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        assert np.isfinite(g).all() and np.abs(r).max() > 0
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6 * np.abs(r).max())

@@ -39,22 +39,11 @@ from redner_tpu_torch.scene import fetch_local_material as t_fetch_lm
 from tests.scene_util import shadow_scene, single_triangle_scene
 from tests.test_edge_sampling import _P0, _L_quadrature, _soft_scene
 from tests.test_oracles import _clip_topology, _pixel_center_floor_hits
-from tests.torch_port_util import port_scene
+from tests.torch_port_util import port_scene, two_torch_threads  # noqa: F401
 
 # The packages export a `render` function under the render module's name.
 jrender = importlib.import_module("redner_tpu.render")
 trender = importlib.import_module("redner_tpu_torch.render")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The lane runs several test processes on few cores; eager PyTorch on
-    small tensors with every core per process mostly waits on its own
-    threads."""
-    keep = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(keep)
 
 
 def _sphere_scene():

@@ -24,7 +24,8 @@ from redner_tpu_torch.ops import intersect as tplain
 from redner_tpu_torch.ops import intersect_cuda as tic
 from redner_tpu_torch.scene import flatten_scene as tflatten
 from tests.test_accel import _on_geometry_rays, _random_rays, _straddle_pairs
-from tests.torch_port_util import port_ray, port_scene
+from tests.torch_port_util import (port_ray, port_scene,  # noqa: F401
+                                   two_torch_threads)
 
 
 def _sphere_scene():

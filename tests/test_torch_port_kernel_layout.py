@@ -20,7 +20,7 @@ from redner_tpu_torch.scene import flatten_scene
 from tests.test_torch_port_cuda import (grid_plane, tie_rays, tie_scene,
                                         unbalanced_rays)
 from tests.test_torch_port_intersect import _sphere_scene
-from tests.torch_port_util import port_scene
+from tests.torch_port_util import port_scene, two_torch_threads  # noqa: F401
 
 QUART = 128  # triangles per kernel work item (csrc/intersect.cu QUART)
 
@@ -178,11 +178,25 @@ def test_unbalanced_and_tie_batches():
 # ------------------------------------------------ the merge, emulated
 
 
-def _closest_by_items(lay, rb, seed):
+def _t_blocks(lay, rb):
+    """Every (tile, chunk) pair's (TILE_N, CHUNK) block of hit distances, as
+    one (nchunks, ntile, TILE_N, CHUNK) tensor: one pass over the chunks
+    with the products closest_plain takes."""
+    ntile = rb.R.shape[0] // plain.TILE_N
+    return torch.stack([
+        plain._exact_hit(rb.R @ lay.Tc[c], rb.tmin, rb.tmax)[1].reshape(
+            ntile, plain.TILE_N, plain.CHUNK)
+        for c in range(lay.nchunks)])
+
+
+def _closest_by_items(lay, rb, seed, blocks=None):
     """The closest-hit kernel's algorithm in plain PyTorch: every item (an
     active pair's 128-triangle quarter, padding left out) takes the first
     minimum t of its real triangles per lane, packs it into a key and
-    merges it by minimum, in a shuffled item order."""
+    merges it by minimum, in a shuffled item order.  blocks: _t_blocks of
+    the batch, when the caller already has them."""
+    if blocks is None:
+        blocks = _t_blocks(lay, rb)
     keys = torch.full((rb.R.shape[0],), ic.NO_HIT, dtype=torch.int64)
     items = [(p, q) for p in range(rb.pairs.shape[0])
              for q in range(plain.CHUNK // QUART)]
@@ -194,9 +208,7 @@ def _closest_by_items(lay, rb, seed):
         if cnt <= 0:
             continue
         lanes = slice(tile * plain.TILE_N, (tile + 1) * plain.TILE_N)
-        _, t = plain._exact_hit(rb.R[lanes] @ lay.Tc[c], rb.tmin[lanes],
-                                rb.tmax[lanes])
-        t = t[:, lo:lo + cnt]
+        t = blocks[c, tile, :, lo:lo + cnt]
         arg = torch.argmin(t, dim=1)
         t_best = torch.gather(t, 1, arg[:, None])[:, 0]
         k = ic.pack_hit_key(t_best, c * plain.CHUNK + lo + arg)
@@ -211,8 +223,9 @@ def test_item_merge_equals_closest_plain(sphere, toward):
     rb = ic.prepare_rays(sphere, _rays(1000, seed=5, toward_sphere=toward))
     pt, pi = plain.closest_plain(lay.Tc, rb)
     assert int((pi >= 0).sum()) > 100
+    blocks = _t_blocks(lay, rb)
     for seed in (0, 1):
-        t, i = _closest_by_items(lay, rb, seed)
+        t, i = _closest_by_items(lay, rb, seed, blocks)
         assert torch.equal(i.to(torch.int64), pi)
         assert torch.equal(t, pt)
 

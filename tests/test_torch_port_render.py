@@ -16,7 +16,7 @@ import redner_tpu as rt
 import redner_tpu_torch as rtt
 from redner_tpu_torch.ops import intersect_cuda as tic
 from tests.scene_util import shadow_scene, single_triangle_scene
-from tests.torch_port_util import port_scene
+from tests.torch_port_util import port_scene, two_torch_threads  # noqa: F401
 
 SEED = 7
 

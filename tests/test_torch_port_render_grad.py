@@ -16,22 +16,12 @@ import torch
 import redner_tpu as rt
 import redner_tpu_torch as rtt
 from tests.scene_util import shadow_scene
-from tests.torch_port_util import (port_scene, shadow_grads_jax,
-                                   shadow_grads_port)
+from tests.torch_port_util import (port_scene, shadow_grads_jax,  # noqa: F401
+                                   shadow_grads_port, two_torch_threads)
 
 U32_MAX = 2**32 - 1
 TWO_SPP = dict(num_samples=2, max_bounces=1)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The lane runs several test processes on few cores; eager PyTorch on
-    small tensors with every core per process mostly waits on its own
-    threads."""
-    keep = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(keep)
 
 # name -> (RenderOptions keywords, seed, correlated replay)
 CASES = {

@@ -5,8 +5,8 @@ compiles run on another worker."""
 
 import pytest
 
-from tests.test_torch_port_render_grad import (  # noqa: F401
-    _two_torch_threads, check_render_gradients)
+from tests.test_torch_port_render_grad import check_render_gradients
+from tests.torch_port_util import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("case", ["secondary_only", "spp_2_4"])

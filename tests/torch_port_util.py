@@ -4,20 +4,37 @@ for the port's comparison tests (the port itself never imports JAX)."""
 import math
 
 import numpy as np
+import pytest
 import torch
 
 import redner_tpu_torch as rtt
 from redner_tpu_torch.core.types import Ray as TRay
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """The lane runs several test processes on few cores; eager PyTorch on
+    small tensors with every core per process mostly waits on its own
+    threads.  A test module takes this autouse fixture by importing it."""
+    keep = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(keep)
+
+
 def _arr(x):
     return None if x is None else np.array(x)
+
+
+_STACKS = ("diffuse_reflectance", "specular_reflectance", "roughness",
+           "normal_map")
 
 
 def scene_arrays(scene) -> dict:
     """The nested dict of numpy arrays that redner_tpu_torch.scene_from_arrays
     takes, filled from a redner_tpu Scene (perspective look-at camera,
-    constant materials, area lights)."""
+    constant or image-texture materials and normal maps, area lights, an
+    envmap)."""
     cam = scene.camera
     assert cam.use_look_at and not cam.has_distortion
     fx = float(np.asarray(cam.intrinsic_mat)[0, 0])
@@ -34,21 +51,30 @@ def scene_arrays(scene) -> dict:
     ]
     materials = []
     for m in scene.materials:
-        assert m.normal_map is None and m.generic_texture is None
-        materials.append({
-            "diffuse_reflectance": _arr(m.diffuse_reflectance.texels),
-            "specular_reflectance": _arr(m.specular_reflectance.texels),
-            "roughness": _arr(m.roughness.texels),
-            "compute_specular_lighting": m.compute_specular_lighting,
-            "two_sided": m.two_sided,
-            "use_vertex_color": m.use_vertex_color,
-        })
+        assert m.generic_texture is None
+        d = {"compute_specular_lighting": m.compute_specular_lighting,
+             "two_sided": m.two_sided,
+             "use_vertex_color": m.use_vertex_color}
+        for key in _STACKS:
+            tex = getattr(m, key)
+            if tex is not None:
+                d[key] = _arr(tex.texels)
+                d[key + "_uv_scale"] = _arr(tex.uv_scale)
+        materials.append(d)
     lights = [
         {"shape_id": l.shape_id, "intensity": _arr(l.intensity),
          "two_sided": l.two_sided, "directly_visible": l.directly_visible}
         for l in scene.area_lights
     ]
+    env = scene.envmap
+    envmap = None if env is None else {
+        "values": _arr(env.values.texels), "uv_scale": _arr(env.values.uv_scale),
+        "env_to_world": _arr(env.env_to_world),
+        "world_to_env": _arr(env.world_to_env),
+        "directly_visible": env.directly_visible,
+    }
     return {
+        "envmap": envmap,
         "camera": {
             "position": _arr(cam.position), "look_at": _arr(cam.look_at),
             "up": _arr(cam.up),
