@@ -58,7 +58,24 @@ Phases (any failure exits non-zero):
              through the kernels with the one through the plain queries
              (64x64); times the forward and fwd+bwd, peak memory, and
              profiles one gradient evaluation;
-  8. report  one `kernels` JSON line, the nvidia-smi line, and the final
+  8. aov     the user utilities on the envtex scene with a 512x512x16
+             generic texture on the sphere and vertex colours on the floor:
+             render_g_buffer with all 16 channels (C = 47; Sobol, 1 spp, 0
+             bounces), render_deferred with the four light kinds, alpha and
+             2x2 supersampling (one 512x512 pass of 262,144 rays),
+             render_pathtracing (4 spp, 1 bounce, Sobol) and
+             screen_gradient_image (4 spp, Sobol, primary edges); gradients
+             of the first three under a loss that reads every channel.
+             Counts the launches of each forward and gradient (the any-hit
+             kernel only under radiance), holds both kernels against their
+             plain versions on the captured batches and times the
+             262,144-ray batch against its bound, compares each image
+             through the kernels with the plain queries' (64x64) and the
+             card with the CPU (32x32: images, gradients), and times each
+             render, its peak memory, the CUDA kernels of one Sobol and
+             one independent draw and a profile of one G-buffer
+             gradient;
+  9. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
 It imports nothing of JAX or redner_tpu.
@@ -77,6 +94,7 @@ import torch
 
 import redner_tpu_torch as rtt
 from redner_tpu_torch import accel
+from redner_tpu_torch import sampler as sampler_mod
 from redner_tpu_torch.camera import sample_primary_rays
 from redner_tpu_torch.core.types import Ray
 from redner_tpu_torch.ops import intersect as plain
@@ -102,12 +120,13 @@ PLAIN = {"closest_hit": plain.closest_plain, "any_hit": plain.anyhit_plain}
 
 
 def make_slice_scene(res=(256, 256), theta=64, phi=128, sphere_material=None,
-                     envmap=None, device=None):
+                     envmap=None, floor_colors=None, device=None):
     """The slice's scene through the user path of bench.py: a UV sphere
     (generate_sphere(64, 128) = 15,748 triangles, the size of the reference
     teapot) with the bench's constant glossy material unless
-    `sphere_material` is given, a floor quad and a quad area light (15,752
-    triangles in all), and `envmap` if given."""
+    `sphere_material` is given, a floor quad (with per-vertex
+    `floor_colors` if given) and a quad area light (15,752 triangles in
+    all), and `envmap` if given."""
     cam = rtt.make_camera(position=[0.0, 1.0, -4.5], look_at=[0.0, -0.2, 0.0],
                           up=[0.0, 1.0, 0.0], fov=45.0, resolution=res,
                           device=device)
@@ -125,7 +144,7 @@ def make_slice_scene(res=(256, 256), theta=64, phi=128, sphere_material=None,
         rtt.Object(vertices=v, indices=f, uvs=uv, normals=n,
                    material=sphere_material),
         rtt.Object(vertices=floor_v, indices=[[0, 2, 1], [1, 2, 3]],
-                   material=gray),
+                   colors=floor_colors, material=gray),
         rtt.generate_quad_light(position=[0.0, 4.0, -1.0],
                                 look_at=[0.0, 0.0, 0.0], size=[2.0, 2.0],
                                 intensity=[20.0, 20.0, 20.0], device=device),
@@ -151,21 +170,30 @@ def _smooth_noise(rng, h, w, c, octaves=4):
 
 
 def make_envtex_scene(res=(256, 256), theta=64, phi=128, tex=512,
-                      env=(256, 512), seed=SEED, device=None):
+                      env=(256, 512), seed=SEED, generic=0, device=None):
     """The slice's scene with image textures and an environment map: the
     sphere has a tex x tex x 3 diffuse texture, a tex x tex x 1 roughness
     texture and a tex x tex x 3 normal map; an env[0] x env[1] x 3 HDR
     envmap (sky gradient + one bright sun lobe, so that importance sampling
-    matters) lights the scene beside the quad light.  Everything is made
-    from `seed` with numpy."""
+    matters) lights the scene beside the quad light.  generic > 0 adds a
+    tex x tex x generic generic texture to the sphere and vertex colours
+    to the floor (the aov phase's scene).  Everything is made from `seed`
+    with numpy."""
     rng = np.random.default_rng(seed)
     nz = _smooth_noise(rng, tex, tex, 2)
+    generic_texture = floor_colors = None
+    if generic:
+        generic_texture = _smooth_noise(np.random.default_rng(seed + 1), tex,
+                                        tex, generic).astype(np.float32)
+        floor_colors = [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9],
+                        [0.9, 0.9, 0.2]]
     textured = rtt.make_material(
         diffuse_reflectance=(0.1 + 0.8 * _smooth_noise(rng, tex, tex, 3)
                              ).astype(np.float32),
         specular_reflectance=[0.2, 0.2, 0.2],
         roughness=(0.05 + 0.45 * _smooth_noise(rng, tex, tex, 1)
                    ).astype(np.float32),
+        generic_texture=generic_texture,
         normal_map=np.concatenate([0.4 + 0.2 * nz, np.ones((tex, tex, 1))],
                                   axis=-1).astype(np.float32),
         device=device)
@@ -181,7 +209,8 @@ def make_envtex_scene(res=(256, 256), theta=64, phi=128, tex=512,
               + rng.uniform(0, 0.02, (eh, ew, 3))).astype(np.float32)
     envmap = rtt.make_environment_map(values, device=device)
     return make_slice_scene(res, theta, phi, sphere_material=textured,
-                            envmap=envmap, device=device)
+                            envmap=envmap, floor_colors=floor_colors,
+                            device=device)
 
 
 def _check(cond, msg):
@@ -487,7 +516,7 @@ def phase_times(fs, scene, opts):
     the main path's shapes.  Returns (forward ms, per-kernel rows)."""
     walls = []
     with torch.no_grad():
-        for _ in range(7):
+        for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rtt.render_image(scene, opts, seed=SEED)
@@ -702,7 +731,7 @@ def phase_grad(scene, opts, smi_line):
     # Times.
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gradient(scene, opts)
@@ -872,7 +901,7 @@ def phase_envtex(opts, smi_line):
     # Times, on the card named by smi_line.
     walls = []
     with torch.no_grad():
-        for _ in range(7):
+        for _ in range(5):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             rtt.render_image(scene, opts, seed=SEED)
@@ -880,10 +909,10 @@ def phase_envtex(opts, smi_line):
             walls.append((time.perf_counter() - t1) * 1e3)
     fwd_ms = statistics.median(walls)
     print(f"[envtex] forward 256x256 4spp 1 bounce: median {fwd_ms:.3f} ms "
-          f"of 7 (all: {', '.join(f'{w:.2f}' for w in walls)})", flush=True)
+          f"of 5 (all: {', '.join(f'{w:.2f}' for w in walls)})", flush=True)
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         envtex_gradient(scene, opts)
@@ -891,13 +920,322 @@ def phase_envtex(opts, smi_line):
         walls.append((time.perf_counter() - t1) * 1e3)
     grad_ms = statistics.median(walls)
     print(f"[envtex] fwd+bwd 256x256 4spp 1 bounce: median {grad_ms:.3f} ms "
-          f"of 5 (all: {', '.join(f'{w:.2f}' for w in walls)}); peak memory "
+          f"of 3 (all: {', '.join(f'{w:.2f}' for w in walls)}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {smi_line}",
           flush=True)
     lap("envtex times")
     profile_run(f"envtex: one gradient evaluation ({smi_line})",
                 lambda: envtex_gradient(scene, opts))
     return fwd_launches, grad_launches, shadow_row, fwd_ms, grad_ms
+
+
+# ----------------------------------------------------------------------
+# The aov phase: the G-buffer, deferred, path-tracing and screen-gradient
+# renders of the user utilities
+# ----------------------------------------------------------------------
+
+AOV_RENDERS = ("g_buffer", "deferred", "pathtracing", "screen_gradient")
+AOV_CHANNELS = tuple(rtt.Channels)  # all 16: C = 47
+AOV_ID_CHANNELS = (rtt.Channels.shape_id, rtt.Channels.triangle_id,
+                   rtt.Channels.material_id)
+AOV_LEAVES = {
+    "g_buffer": ("sphere vertices", "sphere diffuse texels",
+                 "sphere generic texels", "camera position"),
+    "deferred": ("sphere vertices", "sphere diffuse texels",
+                 "point light position"),
+    "pathtracing": ("sphere vertices", "sphere diffuse texels",
+                    "light intensity"),
+}
+POINT_LIGHT = [0.5, 2.0, -2.0]
+IMAGE_AGREE_MIN = 0.99  # card vs CPU: float pixels within rtol 1e-4
+ID_AGREE_MIN = 0.999  # card vs CPU: id pixels equal
+
+
+def deferred_lights(point_position):
+    """The four deferred light kinds; the point light at point_position."""
+    return [
+        rtt.AmbientLight([0.03, 0.03, 0.04]),
+        rtt.PointLight(point_position, [40.0, 38.0, 34.0]),
+        rtt.DirectionalLight([0.4, -1.0, 0.6], [0.6, 0.6, 0.7]),
+        # The spot cone opens along spot_direction from the lit point
+        # toward the light (redner_tpu's convention): a spot at (-1, 3, -3)
+        # aimed at the origin.
+        rtt.SpotLight([-1.0, 3.0, -3.0], [-0.2294, 0.6882, -0.6882], 6.0,
+                      [25.0, 25.0, 25.0]),
+    ]
+
+
+def aov_render(name, scene, engine=None, grad=False):
+    """One of AOV_RENDERS on scene (a make_envtex_scene(generic=16) scene)
+    -> (output, gradients of sum(output * w) w.r.t. AOV_LEAVES[name] or
+    None).  w weights the channels 0.5..1.5, so the loss reads every
+    channel.
+
+    g_buffer: render_g_buffer with all 16 channels (Sobol, 1 spp, 0
+    bounces); deferred: render_deferred with the four light kinds, alpha
+    and aa_samples=2; pathtracing: render_pathtracing at 4 spp, 1 bounce,
+    Sobol; screen_gradient: screen_gradient_image at 4 spp, 1 bounce,
+    Sobol, with primary edges (forward only)."""
+    m0 = scene.materials[0]
+    point = torch.tensor(POINT_LIGHT, device=scene.camera.device)
+    if name == "screen_gradient":
+        opts = rtt.RenderOptions(num_samples=4, max_bounces=1,
+                                 sampler_type=rtt.SamplerType.sobol)
+        return rtt.screen_gradient_image(scene, opts, seed=SEED,
+                                         engine=engine), None
+    if name == "g_buffer":
+        leaves = [scene.shapes[0].vertices, m0.diffuse_reflectance.texels,
+                  m0.generic_texture.texels, scene.camera.position]
+        fn = lambda: rtt.render_g_buffer(scene, AOV_CHANNELS, seed=SEED,
+                                         engine=engine)
+    elif name == "deferred":
+        leaves = [scene.shapes[0].vertices, m0.diffuse_reflectance.texels,
+                  point]
+        fn = lambda: rtt.render_deferred(scene, deferred_lights(point),
+                                         alpha=True, aa_samples=2, seed=SEED,
+                                         engine=engine)
+    else:
+        leaves = [scene.shapes[0].vertices, m0.diffuse_reflectance.texels,
+                  scene.area_lights[0].intensity]
+        fn = lambda: rtt.render_pathtracing(scene, max_bounces=1,
+                                            num_samples=4, seed=SEED,
+                                            engine=engine)
+    if not grad:
+        with torch.no_grad():
+            return fn(), None
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        img = fn()
+        w = torch.linspace(0.5, 1.5, img.shape[-1], device=img.device)
+        grads = torch.autograd.grad(torch.sum(img * w), leaves)
+        return img.detach(), [g.detach() for g in grads]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def _id_columns(name, n_cols):
+    """Boolean mask of the id columns of render `name`'s output."""
+    ids = torch.zeros(n_cols, dtype=torch.bool)
+    if name == "g_buffer":
+        ci = rtt.ChannelInfo(AOV_CHANNELS)
+        for ch in AOV_ID_CHANNELS:
+            ids[ci.offset_of(ch)] = True
+    return ids
+
+
+def image_agreement(name, a, b):
+    """(share of pixels whose float columns agree at rtol 1e-4, atol 1e-6 x
+    max; share whose id columns are equal) between outputs a and b."""
+    a, b = a.cpu(), b.cpu()
+    ids = _id_columns(name, a.shape[-1])
+    fa, fb = a[..., ~ids], b[..., ~ids]
+    close = torch.isclose(fa, fb, rtol=1e-4,
+                          atol=1e-6 * float(fb.abs().max())).flatten(2).all(-1)
+    same = (a[..., ids] == b[..., ids]).all(-1) if ids.any() else \
+        torch.ones(a.shape[:2], dtype=torch.bool)
+    return float(close.float().mean()), float(same.float().mean())
+
+
+def check_batches(label, fs, cap):
+    """Each captured batch through the kernel and its plain version:
+    closest hit ids on >= AGREE_MIN of the lanes, any hit on all.  Returns
+    (batches, lanes compared, lanes that differ)."""
+    lanes = bad_all = 0
+    for i, (kind, rb) in enumerate(cap):
+        with torch.no_grad():
+            if kind == "closest_hit":
+                kout = ic.closest_hit(fs.layout, rb)[1].to(torch.int64)
+                bad = int((kout != plain.closest_plain(fs.layout.Tc,
+                                                       rb)[1]).sum())
+                _check(bad <= (1 - AGREE_MIN) * rb.n,
+                       f"{label} batch {i}: {bad} closest-hit lanes differ")
+            else:
+                kout = ic.any_hit(fs.layout, rb) != 0
+                bad = int((kout != plain.anyhit_plain(fs.layout.Tc,
+                                                      rb)[0]).sum())
+                _check(bad == 0, f"{label} batch {i}: {bad} any-hit lanes "
+                       "differ")
+        lanes += rb.n
+        bad_all += bad
+    return len(cap), lanes, bad_all
+
+
+def _wall_ms(run, reps=3):
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), walls
+
+
+def phase_aov(smi_line):
+    """The G-buffer, deferred, path-tracing and screen-gradient renders of
+    the user utilities on the envtex scene with a 512x512x16 generic
+    texture and a vertex-coloured floor: launches per forward and per
+    gradient, kernels against their plain versions on the captured batches
+    (the deferred 262,144-ray batch timed against its bound), images
+    through the kernels against the plain queries (64x64), the card
+    against the CPU (32x32), times, peak memory and a profile.  Returns
+    {render: row} and the 262,144-ray batch's row."""
+    dev = torch.device("cuda")
+    lap = _Lap(time.perf_counter())
+    scene = make_envtex_scene(device=dev, generic=16)
+    fs = rtt.flatten_scene(scene)
+    _check(fs.num_triangles == 15752 and fs.mat_generic[0] is not None,
+           "aov scene: want 15752 triangles and a generic texture")
+    C = rtt.ChannelInfo(AOV_CHANNELS).num_total_dimensions
+    print(f"[aov] scene: envtex + generic texture "
+          f"{tuple(scene.materials[0].generic_texture.texels.shape)} on the "
+          f"sphere, vertex colours on the floor; G-buffer channels C = {C}",
+          flush=True)
+    _check(C == 47, f"all 16 channels give C = {C}, want 47")
+    # Each render once with the launch counts zeroed just before and read
+    # just after, its kernel launches captured on the way (the recorder
+    # calls the counted wrappers).  The screen gradient (seconds a call)
+    # has no warm-up of its own: its counted call warms it up for the
+    # timed calls below.
+    rows, caps = {}, {}
+    for name in AOV_RENDERS:
+        grad = name != "screen_gradient"
+        if grad:
+            aov_render(name, scene, grad=True)  # warm-up
+        torch.cuda.synchronize()
+        ic.reset_launch_counts()
+        out = []
+        caps[name] = capture_launches(
+            lambda: out.append(aov_render(name, scene)[0]))
+        out = out[0]
+        row = {"launches": dict(ic.LAUNCHES)}
+        if grad:
+            ic.reset_launch_counts()
+            grads = []
+            cap = capture_launches(
+                lambda: grads.extend(aov_render(name, scene, grad=True)[1]))
+            row["launches_per_gradient"] = dict(ic.LAUNCHES)
+            if name != "pathtracing":  # its forward's batches are enough
+                caps[name] = cap
+            for leaf, g in zip(AOV_LEAVES[name], grads):
+                _check(bool(torch.isfinite(g).all()),
+                       f"{name}: non-finite gradient w.r.t. {leaf}")
+                _check(float(g.abs().max()) > 0,
+                       f"{name}: zero gradient w.r.t. {leaf}")
+        radiance = name in ("pathtracing", "screen_gradient")
+        for key in ("launches", "launches_per_gradient"):
+            if key in row:
+                got = row[key]
+                _check(got["closest_hit"] > 0 and
+                       (got["any_hit"] > 0) == radiance,
+                       f"{name} {key}: {got} (any hit only with radiance)")
+        _check(bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0,
+               f"{name}: output not finite or all zero")
+        row["shape"] = tuple(out.shape)
+        print(f"[aov] {name}: output {tuple(out.shape)}, launches per "
+              f"forward {row['launches']}"
+              + (f", per gradient {row['launches_per_gradient']}"
+                 if grad else ""), flush=True)
+        rows[name] = row
+    _check(rows["deferred"].pop("shape") == (256, 256, 4)
+           and rows["deferred"]["launches"] == {"closest_hit": 1,
+                                                "any_hit": 0},
+           "deferred: want a 256x256x4 image from one 512x512 pass")
+    _check(rows["g_buffer"].pop("shape") == (256, 256, 47),
+           "g_buffer: want a 256x256x47 image")
+    for name in ("pathtracing", "screen_gradient"):
+        rows[name].pop("shape")
+    lap("aov launches")
+
+    # Kernels against plain versions on the captured batches: the
+    # gradients' of the G-buffer and the deferred render, the path tracer's
+    # forward, and the screen gradient's first sample and last edge chunk.
+    cap = caps["deferred"]
+    n_max = max(rb.n for _, rb in cap)
+    big = [rb for _, rb in cap if rb.n == n_max]
+    _check(n_max == 512 * 512 and len(big) == 2,
+           f"deferred: {len(big)} batches of {n_max} rays, want 2 of "
+           "262,144 (forward and re-render)")
+    caps["screen_gradient"] = (caps["screen_gradient"][:3]
+                               + caps["screen_gradient"][-3:])
+    for name, c in caps.items():
+        n, lanes, bad = check_batches(name, fs, c)
+        print(f"[aov] {name}: {n} batches, {lanes} lanes against the plain "
+              f"versions, {bad} differ", flush=True)
+    print(f"[aov] the deferred 512x512 G-buffer batch on {smi_line}:",
+          flush=True)
+    big_row = measure_launch("deferred 262,144-ray batch", "closest_hit",
+                             fs, big[0])
+    lap("aov batches")
+
+    # Images through the kernels against the plain queries (64x64), the
+    # card against the CPU (32x32).
+    s64 = make_envtex_scene(device=dev, generic=16, res=(64, 64))
+    sc = make_envtex_scene(device=dev, generic=16, res=(32, 32))
+    sh = make_envtex_scene(device="cpu", generic=16, res=(32, 32))
+    for name in AOV_RENDERS:
+        t0 = time.perf_counter()
+        k, _ = aov_render(name, s64)
+        p, _ = aov_render(name, s64, engine="plain")
+        f_ok, id_ok = image_agreement(name, k, p)
+        print(f"[aov] 64x64 {name} kernels vs plain: {f_ok:.6f} of the "
+              f"pixels within rtol 1e-4, ids equal on {id_ok:.6f}",
+              flush=True)
+        _check(f_ok >= PIXEL_AGREE_MIN and id_ok >= PIXEL_AGREE_MIN,
+               f"{name}: the kernels' image differs from the plain queries'")
+        grad = name != "screen_gradient"
+        a, ga = aov_render(name, sc, grad=grad)
+        b, gb = aov_render(name, sh, grad=grad)
+        if grad:
+            f_ok, id_ok = image_agreement(name, a, b)
+            print(f"[aov] 32x32 {name} card vs CPU: {f_ok:.6f} of the pixels "
+                  f"within rtol 1e-4, ids equal on {id_ok:.6f}", flush=True)
+            _check(f_ok >= IMAGE_AGREE_MIN and id_ok >= ID_AGREE_MIN,
+                   f"{name}: card and CPU images differ")
+            pairs = zip(AOV_LEAVES[name], ga, gb)
+        else:  # a derivative image: held like a gradient
+            pairs = [("screen gradient image", a, b)]
+        for leaf, x, y in pairs:
+            rel = float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
+            print(f"[aov] 32x32 {name} card vs CPU, {leaf}: relative L2 "
+                  f"{rel:.3e}", flush=True)
+            _check(rel <= GRAD_L2_MAX, f"{name}: card and CPU differ ({leaf})")
+        print(f"[aov] {name}: 64x64 and 32x32 checks took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lap("aov kernels vs plain, card vs CPU")
+
+    # Times and peak memory, on the card named by smi_line.
+    for name in AOV_RENDERS:
+        row = rows[name]
+        row["forward_ms"], walls = _wall_ms(
+            lambda: aov_render(name, scene),
+            reps=2 if name == "screen_gradient" else 3)
+        msg = (f"[aov] {name}: forward median {row['forward_ms']:.3f} ms "
+               f"(all: {', '.join(f'{w:.2f}' for w in walls)})")
+        if name == "screen_gradient":
+            print(f"{msg}; {smi_line}", flush=True)
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        row["gradient_ms"], walls = _wall_ms(
+            lambda: aov_render(name, scene, grad=True))
+        row["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        msg += (f"; fwd+bwd median {row['gradient_ms']:.3f} ms (all: "
+                f"{', '.join(f'{w:.2f}' for w in walls)}), peak memory "
+                f"{row['peak_mib']:.1f} MiB")
+        print(f"{msg}; {smi_line}", flush=True)
+    lap("aov times")
+    lanes = torch.arange(65536, device=dev)
+    for st in (rtt.SamplerType.sobol, rtt.SamplerType.independent):
+        run = lambda: sampler_mod.draw(st, SEED, lanes, 3, 9, 4)
+        run()  # warm-up (the Sobol table's bit planes reach the card once)
+        profile_run(f"one {st.name} draw of 4 dims at 65,536 lanes", run,
+                    top=3)
+    profile_run(f"aov: one G-buffer gradient evaluation ({smi_line})",
+                lambda: aov_render("g_buffer", scene, grad=True))
+    lap("aov profile")
+    return rows, big_row
 
 
 class _Lap:
@@ -944,6 +1282,8 @@ def main():
     env_fwd, env_grad, env_shadow, env_fwd_ms, env_grad_ms = phase_envtex(
         opts, smi_line)
     lap("envtex")
+    aov_rows, aov_big = phase_aov(smi_line)
+    lap("aov")
 
     kernels = []
     for kind, rows in per.items():
@@ -976,9 +1316,16 @@ def main():
                        "launches_per_gradient": env_grad[kind],
                        "forward_ms": env_fwd_ms, "gradient_ms": env_grad_ms},
         })
+        kernels[-1]["aov"] = {
+            name: {k: (v[kind] if k.startswith("launches") else v)
+                   for k, v in row.items()}
+            for name, row in aov_rows.items()}
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {
                 k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}
+        else:
+            kernels[-1]["aov"]["deferred_batch_262144"] = {
+                k: aov_big[k] for k in ("ms", "plain_ms", "bound_ms")}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -4,12 +4,17 @@ Tracing through Edge Sampling").
 
 Ported so far: the forward render (`render_image`) on a perspective camera,
 triangle meshes with constant or mipmapped image-texture materials (the
-MaterialBank) and normal maps, area lights, a lat-long environment map and
-the independent sampler, with every ray query on two hand-written CUDA kernels
-(ops/intersect_cuda.py, csrc/intersect.cu); and `render`, a
+MaterialBank), normal maps and generic textures, area lights, a lat-long
+environment map, the independent and Sobol samplers and all 16 AOV
+channels, with every ray query on two hand-written CUDA kernels
+(ops/intersect_cuda.py, csrc/intersect.cu); `render`, a
 torch.autograd.Function whose backward adds primary and secondary edge
-sampling (the visibility gradients) to the continuous ones.  torch.autograd
-through `render_image` alone gives only the continuous gradients.
+sampling (the visibility gradients) to the continuous ones; the screen
+gradient (`screen_gradient_image`); and the pyredner-style utilities
+(`render_g_buffer`, `render_deferred`, `render_albedo`,
+`render_pathtracing`, `render_generic`, spherical harmonics, sRGB).
+torch.autograd through `render_image` alone gives only the continuous
+gradients.
 
 Entry points run on the CUDA card unless given device="cpu"; the CPU path
 uses the kernels' plain PyTorch versions.  This package imports neither
@@ -32,19 +37,33 @@ from redner_tpu_torch.object import Object, scene_from_objects  # noqa: E402
 from redner_tpu_torch.render import RenderOptions, render_image  # noqa: E402
 from redner_tpu_torch.render_grad import (  # noqa: E402
     get_use_correlated_random_number, render, set_use_correlated_random_number)
+from redner_tpu_torch.render_utils import (AmbientLight,  # noqa: E402
+                                           DirectionalLight, PointLight,
+                                           SpotLight, render_albedo,
+                                           render_deferred, render_g_buffer,
+                                           render_generic, render_pathtracing)
 from redner_tpu_torch.sampler import SamplerType  # noqa: E402
 from redner_tpu_torch.scene import Scene, flatten_scene, make_scene  # noqa: E402
+from redner_tpu_torch.screen_gradient import (  # noqa: E402
+    screen_gradient_image, visualize_screen_gradient)
 from redner_tpu_torch.texture import Texture, make_texture  # noqa: E402
 from redner_tpu_torch.utils import (generate_quad_light,  # noqa: E402
-                                    generate_sphere)
+                                    generate_sphere, linear_to_srgb,
+                                    sh_basis, sh_eval, sh_reconstruct,
+                                    srgb_to_linear)
 
 __all__ = [
-    "AreaLight", "Camera", "CameraType", "ChannelInfo", "Channels",
-    "EnvironmentMap", "Material", "Object", "RenderOptions", "SamplerType",
-    "Scene", "Shape", "Texture", "flatten_scene", "generate_quad_light",
-    "generate_sphere", "make_area_light", "make_camera",
-    "make_environment_map", "make_material", "make_scene",
-    "make_shape", "make_texture", "get_use_correlated_random_number",
-    "render", "render_image", "resolve_device", "scene_from_arrays",
-    "scene_from_objects", "set_use_correlated_random_number",
+    "AmbientLight", "AreaLight", "Camera", "CameraType", "ChannelInfo",
+    "Channels", "DirectionalLight", "EnvironmentMap", "Material", "Object",
+    "PointLight", "RenderOptions", "SamplerType", "Scene", "Shape",
+    "SpotLight", "Texture", "flatten_scene", "generate_quad_light",
+    "generate_sphere", "get_use_correlated_random_number",
+    "linear_to_srgb", "make_area_light", "make_camera",
+    "make_environment_map", "make_material", "make_scene", "make_shape",
+    "make_texture", "render", "render_albedo", "render_deferred",
+    "render_g_buffer", "render_generic", "render_image",
+    "render_pathtracing", "resolve_device", "scene_from_arrays",
+    "scene_from_objects", "screen_gradient_image",
+    "set_use_correlated_random_number", "sh_basis", "sh_eval",
+    "sh_reconstruct", "srgb_to_linear", "visualize_screen_gradient",
 ]

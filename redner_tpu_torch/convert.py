@@ -13,7 +13,8 @@ Python scalars:
                     "specular_reflectance": (3,) or (H, W, 3),
                     "roughness": (1,) or (H, W, 1),
                     optional "normal_map": (H, W, 3),
-                    optional "<stack>_uv_scale": (2,) for any of the four,
+                    optional "generic_texture": (C,) or (H, W, C),
+                    optional "<stack>_uv_scale": (2,) for any of the five,
                     "compute_specular_lighting", "two_sided",
                     "use_vertex_color": bool}],
      "area_lights": [{"shape_id": int, "intensity": (3,),
@@ -72,6 +73,7 @@ def scene_from_arrays(d: dict, device=None, dtype=torch.float32) -> Scene:
             diffuse_reflectance=tex(m, "diffuse_reflectance"),
             specular_reflectance=tex(m, "specular_reflectance"),
             roughness=tex(m, "roughness"),
+            generic_texture=tex(m, "generic_texture"),
             normal_map=tex(m, "normal_map"),
             compute_specular_lighting=bool(m["compute_specular_lighting"]),
             two_sided=bool(m.get("two_sided", False)),

@@ -466,6 +466,28 @@ def primary_edge_gradients(scene, flatten_scene_fn, render_sample_fn, options,
     return torch.sum(w * torch.sum(s["n_hat"] * s["x_pix"], dim=-1))
 
 
+def primary_edge_screen_gradient_image(scene, flatten_scene_fn,
+                                       render_sample_fn, options, seed,
+                                       num_edge_samples: int, image_shape,
+                                       engine=None):
+    """Dirac (edge) part of the screen-gradient image -> (vh, vw, 2, C)
+    (src/edge.cpp:765-773): crossing a silhouette along +n_hat the channel
+    value jumps from f_minus to f_plus, so each edge sample scatters
+    (f_plus - f_minus) n_hat / pdf into the pixel that contains it.  The
+    continuous part is screen_gradient's forward-mode derivative."""
+    s = _sample_primary_edges(scene, flatten_scene_fn, render_sample_fn,
+                              options, seed, num_edge_samples, engine)
+    vh, vw, _, C = image_shape
+    with torch.no_grad():
+        valid = s["inside"] & (s["pdf"] > 0) & s["any_edges"]
+        w = (s["f_plus"] - s["f_minus"]) / vm.maximum(s["pdf"], 1e-20)[:, None]
+        w = torch.where(valid[:, None], w, torch.zeros_like(w)) / s["N"]
+        contrib = s["n_hat"][:, :, None] * w[:, None, :]  # (N, 2, C)
+        img = torch.zeros((vh * vw, 2, C), dtype=w.dtype, device=w.device)
+        img.index_add_(0, s["py"] * vw + s["px"], contrib)
+    return img.reshape(vh, vw, 2, C)
+
+
 # ----------------------------------------------------------------------
 # Secondary edges (shadow / global-illumination discontinuities)
 # ----------------------------------------------------------------------

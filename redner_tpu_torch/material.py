@@ -49,10 +49,6 @@ def make_material(
     device=None,
 ) -> Material:
     dev = resolve_device(device)
-    if generic_texture is not None:
-        raise NotImplementedError(
-            "redner_tpu_torch: generic textures (the generic_texture AOV "
-            "channel) are not ported yet (ROADMAP queue A item 13)")
 
     def as_tex(x, default):
         if x is None:
@@ -65,6 +61,8 @@ def make_material(
         diffuse_reflectance=as_tex(diffuse_reflectance, [0.0, 0.0, 0.0]),
         specular_reflectance=as_tex(specular_reflectance, [0.0, 0.0, 0.0]),
         roughness=as_tex(roughness, [1.0]),
+        generic_texture=(None if generic_texture is None
+                         else as_tex(generic_texture, None)),
         normal_map=(None if normal_map is None
                     else as_tex(normal_map, None)),
         compute_specular_lighting=specular_reflectance is not None,

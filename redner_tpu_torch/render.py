@@ -13,8 +13,12 @@ radiance adjoint, emit the secondary-edge surrogate at every bounce
 (`_secondary_edge_term`); `_render_image_impl(secondary_d_radiance=...)`
 runs that fused pass over the sample loop for render_grad.render.
 
-Not ported yet (they raise): AOV channels other than radiance, the Sobol
-sampler, intersection replay, remat and sharding.
+`render_sample` fills every AOV channel at the primary hit
+(`_accumulate_primary`) and runs the bounce loop only when the radiance
+channel is asked for.
+
+Not ported yet (they raise): intersection replay, remat, the batched
+shadow sweep (split_shadow_sweep=False) and sharding.
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ from redner_tpu_torch.core.types import (Intersection, Ray, RayDifferential,
 from redner_tpu_torch.edge import build_edge_table, secondary_edge_surrogate
 from redner_tpu_torch.envmap import envmap_eval, envmap_pdf, envmap_sample
 from redner_tpu_torch.geometry import build_surface_point, sample_tri_point
-from redner_tpu_torch.material import (bsdf, bsdf_pdf, bsdf_sample,
-                                       perturb_shading_frame)
+from redner_tpu_torch.material import (LocalMaterial, bsdf, bsdf_pdf,
+                                       bsdf_sample, perturb_shading_frame)
 from redner_tpu_torch.sampler import SamplerType
-from redner_tpu_torch.scene import (FlatScene, Scene, fetch_local_material,
-                                    flatten_scene, gather_face_corner_attribs,
+from redner_tpu_torch.scene import (FlatScene, Scene, _fetch_material_stack,
+                                    fetch_local_material, flatten_scene,
+                                    gather_face_corner_attribs,
                                     gather_face_vertices)
 
 
@@ -162,6 +167,72 @@ def _face_emission(fs: FlatScene, tri_id, wi_dot_n, camera_ray: bool = True):
         ok = ok & fs.light_directly_visible[lid_c]
     return torch.where(ok[..., None], intensity,
                        torch.zeros_like(intensity)), is_light
+
+
+def _accumulate_primary(fs: FlatScene, ci: ChannelInfo, ray: Ray,
+                        isect: Intersection, sp: SurfacePoint,
+                        lm: LocalMaterial):
+    """Every G-buffer channel at the primary hit
+    (src/primary_contribution.cpp:6-437) -> (n, C).  Missed lanes write
+    zeros, and so do the radiance columns, which `trace_radiance` fills.
+    """
+    n = isect.tri_id.shape[0]
+    dtype, dev = sp.position.dtype, sp.position.device
+    valid = isect.valid
+    vmask = valid[..., None]
+
+    def masked(x):
+        if x.dim() == 1:
+            return torch.where(valid, x, torch.zeros_like(x))[:, None]
+        return torch.where(vmask, x, torch.zeros_like(x))
+
+    def mid():
+        return fs.face_material_id[
+            torch.clamp(isect.tri_id, 0, fs.num_triangles - 1)]
+
+    cols = []
+    for ch in ci.channels:
+        if ch == Channels.radiance:
+            cols.append(torch.zeros((n, 3), dtype=dtype, device=dev))
+        elif ch == Channels.alpha:
+            cols.append(masked(torch.ones((n,), dtype=dtype, device=dev)))
+        elif ch == Channels.depth:
+            # A missed lane's point is the ray origin, and the derivative
+            # of a zero length is NaN even under the mask: give those
+            # lanes a unit offset (the reference's depth channel returns a
+            # NaN camera-position gradient wherever a camera ray misses).
+            off = torch.where(vmask, ray.org - sp.position,
+                              torch.ones_like(sp.position))
+            cols.append(masked(vm.length(off)))
+        elif ch == Channels.position:
+            cols.append(masked(sp.position))
+        elif ch == Channels.geometry_normal:
+            cols.append(masked(sp.geom_normal))
+        elif ch == Channels.shading_normal:
+            cols.append(masked(perturb_shading_frame(lm, sp)[2]))
+        elif ch == Channels.uv:
+            cols.append(masked(sp.uv))
+        elif ch == Channels.barycentric_coordinates:
+            cols.append(masked(sp.barycentric))
+        elif ch == Channels.diffuse_reflectance:
+            cols.append(masked(lm.diffuse))
+        elif ch == Channels.specular_reflectance:
+            cols.append(masked(lm.specular))
+        elif ch == Channels.roughness:
+            cols.append(masked(lm.roughness))
+        elif ch == Channels.generic_texture:
+            cols.append(masked(_fetch_material_stack(
+                fs.mat_generic, sp.uv, sp.du_dxy, sp.dv_dxy, mid(),
+                ci.max_generic_texture_dimension)))
+        elif ch == Channels.vertex_color:
+            cols.append(masked(sp.color))
+        elif ch == Channels.shape_id:
+            cols.append(masked(isect.shape_id.to(dtype)))
+        elif ch == Channels.triangle_id:
+            cols.append(masked(isect.tri_id.to(dtype)))
+        elif ch == Channels.material_id:
+            cols.append(masked(mid().to(dtype)))
+    return torch.cat(cols, dim=-1)
 
 
 def _sample_light_point(fs: FlatScene, sp_pos, light_uniforms):
@@ -565,11 +636,6 @@ def swizzle_order(vh: int, vw: int):
 
 
 def _check_supported(options: RenderOptions):
-    ci = options.channel_info
-    if ci.channels != (Channels.radiance,):
-        raise NotImplementedError(
-            "redner_tpu_torch: only the radiance channel is ported yet "
-            f"(asked for {[c.name for c in ci.channels]}; ROADMAP queue A)")
     if options.remat:
         raise NotImplementedError(
             "redner_tpu_torch: remat is not ported yet (ROADMAP queue A)")
@@ -586,8 +652,9 @@ def render_sample(
     options: RenderOptions,
     seed,
     sample_id,
-    pixel_order=None,
+    jitter=None,
     primary_rays=None,
+    pixel_order=None,
     secondary_d_pixel=None,
     secondary_edge_table=None,
     precise_primary: bool = False,
@@ -596,8 +663,12 @@ def render_sample(
 ):
     """Trace one sample per lane; returns the (num_lanes, C) contribution
     (unweighted; the caller averages), lane k = pixel pixel_order[k]
-    (identity when None).  The RNG is keyed by the true pixel id.
+    (identity when None).  The RNG is keyed by the true pixel id.  Every
+    AOV channel is filled at the primary hit; the bounce loop runs only
+    for the radiance channel.
 
+    jitter: (n, 2) sub-pixel offsets in place of the drawn ones (the screen
+    gradient differentiates the render w.r.t. them).
     primary_rays: (Ray, RayDifferential) supplied by an edge pass in place
     of camera rays; the lanes then key the RNG directly (pixel_order holds
     the keys).  rays_coherent: the caller guarantees such rays are
@@ -621,12 +692,13 @@ def render_sample(
     dim = sampler_mod.DimAllocator()
     cam_dim = dim.next(sampler_mod.CAMERA_DIMS)
     if primary_rays is None:
-        if options.sample_pixel_center:
-            jitter = torch.full((n, 2), 0.5, dtype=dtype, device=dev)
-        else:
-            jitter = sampler_mod.draw(
-                options.sampler_type, seed, pixel_ids, sample_id, cam_dim, 2
-            )
+        if jitter is None:
+            if options.sample_pixel_center:
+                jitter = torch.full((n, 2), 0.5, dtype=dtype, device=dev)
+            else:
+                jitter = sampler_mod.draw(
+                    options.sampler_type, seed, pixel_ids, sample_id,
+                    cam_dim, 2)
         ray, ray_diff = sample_primary_rays(camera, jitter,
                                             pixel_order=pixel_ids)
     else:
@@ -637,17 +709,31 @@ def render_sample(
     coherent = (primary_rays is None and pixel_order is not None) \
         or rays_coherent
     isect = accel.intersect(fs, ray, presorted=coherent, engine=engine)
-    out = trace_radiance(
-        fs, options, seed, pixel_ids, sample_id, ray, ray_diff,
-        dim_start=dim.dim, primary_isect=isect, coherent=coherent,
-        secondary_d_pixel=secondary_d_pixel,
-        secondary_edge_table=secondary_edge_table, engine=engine,
-    )
-    radiance, surr = out if secondary_d_pixel is not None else (out, None)
-    img = torch.zeros((n, ci.num_total_dimensions), dtype=dtype, device=dev)
-    roff = ci.radiance_dimension
-    img = torch.cat([img[:, :roff], radiance, img[:, roff + 3:]], dim=-1)
-    return img if surr is None else (img, surr)
+    want_radiance = ci.radiance_dimension >= 0
+    img = None  # nothing but radiance: trace_radiance fills every column
+    if ci.channels != (Channels.radiance,):
+        sp, _ = _surface_point_at(fs, isect, ray, ray_diff)
+        mid = fs.face_material_id[torch.clamp(isect.tri_id, 0,
+                                              fs.num_triangles - 1)]
+        lm = fetch_local_material(fs, sp, mid)
+        img = _accumulate_primary(fs, ci, ray, isect, sp, lm)
+    surr = None
+    if want_radiance:
+        out = trace_radiance(
+            fs, options, seed, pixel_ids, sample_id, ray, ray_diff,
+            dim_start=dim.dim, primary_isect=isect, coherent=coherent,
+            secondary_d_pixel=secondary_d_pixel,
+            secondary_edge_table=secondary_edge_table, engine=engine,
+        )
+        radiance, surr = out if secondary_d_pixel is not None else (out, None)
+        roff = ci.radiance_dimension
+        img = radiance if img is None else torch.cat(
+            [img[:, :roff], radiance, img[:, roff + 3:]], dim=-1)
+    if secondary_d_pixel is None:
+        return img
+    if surr is None:
+        surr = torch.zeros((), dtype=dtype, device=dev)
+    return img, surr
 
 
 def render_image(scene: Scene, options: RenderOptions, seed=0,

@@ -1,9 +1,11 @@
-"""Counter-based, replay-exact random numbers (port of the independent
-sampler of redner_tpu/sampler.py).
+"""Counter-based, replay-exact random numbers (port of
+redner_tpu/sampler.py): the independent sampler and the Owen-scrambled
+Sobol sampler.
 
-Every uniform is a pure function u(seed, pixel, sample_id, dim) of the
-PCG4D hash (Jarzynski & Olano, JCGT 2020), so matched seeds draw the same
-bits in both packages and no torch.Generator is involved.
+Every uniform is a pure function u(seed, pixel, sample_id, dim): of the
+PCG4D hash (Jarzynski & Olano, JCGT 2020) for the independent sampler, of
+the scrambled Sobol point for the Sobol sampler.  Matched seeds draw the
+same bits in both packages and no torch.Generator is involved.
 
 uint32 arithmetic is carried in int64 holding values in [0, 2^32): every
 product is split into 16-bit halves so no intermediate leaves int64, and
@@ -13,8 +15,13 @@ every result is masked back to 32 bits.
 from __future__ import annotations
 
 import enum
+import functools
 
+import numpy as np
 import torch
+
+from redner_tpu_torch.sobol_table import (SOBOL_BITS, SOBOL_TABLE_DIMS,
+                                          load_sobol_table)
 
 
 class SamplerType(enum.Enum):
@@ -120,12 +127,109 @@ class DimAllocator:
         return d
 
 
+# ----------------------------------------------------------------------
+# Scrambled Sobol (reference src/sobol_sampler.cpp): the sample index is
+# sample_id, shuffled per (seed, pixel) by an Owen scramble; the value is
+# Owen-scrambled per (seed, pixel, dim).  Dimensions past the table fall
+# back to the hash (`uniform`).
+# ----------------------------------------------------------------------
+
+
+def _hash_u32(x):
+    """A strong uint32 mix (hash64shift-style)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _reverse_bits(x):
+    x = ((x & 0x55555555) << 1) | ((x >> 1) & 0x55555555)
+    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
+    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
+    return ((x << 16) & _M32) | (x >> 16)
+
+
+def _owen_scramble(x, key):
+    """Laine-Karras-style nested uniform scramble in reversed-bit space."""
+    x = (_reverse_bits(x) + key) & _M32
+    for c in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
+        x = x ^ _mul32(x, c)
+    return _reverse_bits(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _sobol_planes(device: str):
+    """planes[d, j, k] = bit k of direction number j of dimension d, as
+    float32 (0 or 1): the shipped table, read on first use, once per
+    device."""
+    bits = (load_sobol_table().astype(np.int64)[..., None]
+            >> np.arange(SOBOL_BITS)) & 1
+    return torch.as_tensor(bits.astype(np.float32), device=device)
+
+
+def _sobol_raw(index, dims):
+    """Unscrambled 32-bit Sobol values of `index` (int64 holding uint32) at
+    the table dimensions `dims` -> index.shape + (len(dims),).
+
+    The XOR over the set bits of the index is the parity of a sum: the
+    (n, 32) bit matrix times each dimension's (32, 32) bit planes, a
+    product of 0/1 float32 entries whose sums (at most 32) are exact, then
+    mod 2.  One matmul for all dims instead of 32 shift-and-XOR steps per
+    dim."""
+    planes = _sobol_planes(str(index.device))[list(dims)]  # (D, 32, 32)
+    D = planes.shape[0]
+    shifts = torch.arange(SOBOL_BITS, device=index.device)
+    bits = ((index.reshape(-1, 1) >> shifts) & 1).to(torch.float32)
+    sums = bits @ planes.permute(1, 0, 2).reshape(SOBOL_BITS, D * SOBOL_BITS)
+    out_bits = torch.remainder(sums, 2.0).to(torch.int64).reshape(
+        -1, D, SOBOL_BITS)
+    raw = torch.sum(out_bits << shifts, dim=-1)
+    return raw.reshape(index.shape + (D,))
+
+
+def sobol_uniforms(seed, pixel_id, sample_id, dim_start: int, n_dims: int):
+    """(lanes..., n_dims) Owen-scrambled Sobol uniforms for the dims
+    [dim_start, dim_start + n_dims); bit-equal to calling sobol_uniform per
+    dim, with the index scramble and the table lookup shared by all dims."""
+    dev = _device_of(pixel_id, sample_id, seed)
+    seed = _as_u32(seed, dev)
+    pixel_id = _as_u32(pixel_id, dev)
+    sample_id = _as_u32(sample_id, dev)
+    dims = list(range(dim_start, dim_start + n_dims))
+    table = [d for d in dims if d < SOBOL_TABLE_DIMS]
+    shape = torch.broadcast_shapes(seed.shape, pixel_id.shape,
+                                   sample_id.shape)
+    cols = {}
+    if table:
+        idx_key = _hash_u32(_mul32(seed, 0x9E3779B9) ^ pixel_id)
+        index = _owen_scramble(sample_id, idx_key)
+        raw = _sobol_raw(index, table)
+        dkey = torch.as_tensor([(d * 0x85EBCA6B) & _M32 for d in table],
+                               dtype=torch.int64, device=dev)
+        val_key = _hash_u32(idx_key[..., None] ^ dkey)
+        vals = _to_unit_float(_owen_scramble(raw, val_key))
+        vals = vals.expand(shape + (len(table),))
+        for k, d in enumerate(table):
+            cols[d] = vals[..., k]
+    for d in dims:
+        if d >= SOBOL_TABLE_DIMS:
+            cols[d] = uniform(seed, pixel_id, sample_id, d).expand(shape)
+    return torch.stack([cols[d] for d in dims], dim=-1)
+
+
+def sobol_uniform(seed, pixel_id, sample_id, dim: int):
+    """One Owen-scrambled Sobol uniform per lane at dimension `dim` (a
+    Python int); past the table, the hash's `uniform`."""
+    return sobol_uniforms(seed, pixel_id, sample_id, dim, 1)[..., 0]
+
+
 def draw(sampler_type: SamplerType, seed, pixel_id, sample_id, dim_start,
          n_dims):
     """Per-stage uniforms for the requested sampler
     (reference src/sampler.h:10-24 dispatch)."""
     if sampler_type == SamplerType.sobol:
-        raise NotImplementedError(
-            "redner_tpu_torch: the Sobol sampler is not ported yet "
-            "(ROADMAP queue A)")
+        return sobol_uniforms(seed, pixel_id, sample_id, dim_start, n_dims)
     return uniforms(seed, pixel_id, sample_id, dim_start, n_dims)

@@ -29,8 +29,9 @@ from redner_tpu_torch.envmap import EnvironmentMap, PackedEnvmap, pack_envmap
 from redner_tpu_torch.geometry import Shape, tri_areas
 from redner_tpu_torch.light import AreaLight
 from redner_tpu_torch.material import LocalMaterial, Material
-from redner_tpu_torch.texture import (MaterialBank, bank_eval,
-                                      pack_material_bank, pack_texture)
+from redner_tpu_torch.texture import (MaterialBank, PackedTexture, bank_eval,
+                                      pack_material_bank, pack_texture,
+                                      texture_eval)
 
 
 @dataclass
@@ -86,6 +87,9 @@ class FlatScene:
     mat_itab: Optional[torch.Tensor]  # (M, n_bank_stacks*(1+3*Lmax)) int64
     # Per stack, its row-block position in mat_itab, or -1 (constant).
     mat_bank_pos: Tuple[int, ...]
+    # Per material, its packed generic texture (the generic_texture AOV
+    # channel's only source), or None.
+    mat_generic: Tuple[Optional[PackedTexture], ...]
 
     # Lights
     light_intensity: torch.Tensor  # (L, 3)
@@ -223,6 +227,9 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         ])
         for stack in stacks
     ]
+    mat_generic = tuple(
+        pack_texture(m.generic_texture) if m.generic_texture is not None
+        else None for m in materials)
     mat_ftab = torch.cat(
         uvs_cols
         + [
@@ -320,6 +327,7 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         mat_bank=mat_bank,
         mat_itab=mat_itab,
         mat_bank_pos=tuple(mat_bank_pos),
+        mat_generic=mat_generic,
         light_intensity=light_intensity,
         light_two_sided=light_two_sided,
         light_directly_visible=light_directly_visible,
@@ -408,6 +416,25 @@ def fetch_local_material(fs: FlatScene, sp, material_id) -> LocalMaterial:
     )
 
 
+def _fetch_material_stack(textures, uv, du_dxy, dv_dxy, mid, channels):
+    """Evaluate a per-material texture stack and select by material id ->
+    (..., channels), zero-padded; a material without a texture gives zeros
+    (redner_tpu/scene.py:443-460)."""
+    out = torch.zeros(uv.shape[:-1] + (channels,), dtype=uv.dtype,
+                      device=uv.device)
+    for m, ptex in enumerate(textures):
+        if ptex is None:
+            continue
+        val = texture_eval(ptex, uv, du_dxy, dv_dxy)
+        if val.shape[-1] < channels:
+            val = torch.cat(
+                [val, torch.zeros(val.shape[:-1] + (channels - val.shape[-1],),
+                                  dtype=val.dtype, device=val.device)],
+                dim=-1)
+        out = torch.where((mid == m)[..., None], val, out)
+    return out
+
+
 # ------------------------------------------------------------------
 # Scene leaves (the tensors render_grad.render differentiates)
 # ------------------------------------------------------------------
@@ -431,7 +458,7 @@ def scene_leaves(scene: Scene) -> list:
     """The scene's float tensors, in a fixed order: camera position,
     look-at, up and fov; each shape's vertices (and uvs, normals, colors);
     each material's texels and uv scales (diffuse, specular, roughness,
-    normal map); each light's intensity; the envmap's
+    generic texture, normal map); each light's intensity; the envmap's
     texels, uv scale, env_to_world and world_to_env."""
     out = []
     _map_float_tensors(scene, lambda t: out.append(t) or t)

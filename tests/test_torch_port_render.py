@@ -99,11 +99,9 @@ def test_continuous_gradients_match_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(channels=(rtt.Channels.radiance, rtt.Channels.depth)),
-    dict(sampler_type=rtt.SamplerType.sobol),
     dict(remat=True),
     dict(split_shadow_sweep=False),
-], ids=["aov_channels", "sobol", "remat", "batched_shadow_sweep"])
+], ids=["remat", "batched_shadow_sweep"])
 def test_unported_options_raise(option):
     tscene = port_scene(single_triangle_scene(res=(4, 4)))
     with pytest.raises(NotImplementedError):

@@ -27,14 +27,14 @@ def _arr(x):
 
 
 _STACKS = ("diffuse_reflectance", "specular_reflectance", "roughness",
-           "normal_map")
+           "generic_texture", "normal_map")
 
 
 def scene_arrays(scene) -> dict:
     """The nested dict of numpy arrays that redner_tpu_torch.scene_from_arrays
     takes, filled from a redner_tpu Scene (perspective look-at camera,
-    constant or image-texture materials and normal maps, area lights, an
-    envmap)."""
+    constant or image-texture materials, generic textures and normal maps,
+    area lights, an envmap)."""
     cam = scene.camera
     assert cam.use_look_at and not cam.has_distortion
     fx = float(np.asarray(cam.intrinsic_mat)[0, 0])
@@ -51,7 +51,6 @@ def scene_arrays(scene) -> dict:
     ]
     materials = []
     for m in scene.materials:
-        assert m.generic_texture is None
         d = {"compute_specular_lighting": m.compute_specular_lighting,
              "two_sided": m.two_sided,
              "use_vertex_color": m.use_vertex_color}
@@ -144,3 +143,63 @@ def port_ray(ray, device="cpu"):
     return TRay(org=t(ray.org), dir=t(ray.dir),
                 tmin=t(np.broadcast_to(np.asarray(ray.tmin), n)),
                 tmax=t(np.broadcast_to(np.asarray(ray.tmax), n)))
+
+
+def aov_scene(res=(16, 16), close=False):
+    """A redner_tpu scene that feeds every AOV channel: a back quad with
+    uvs, vertex colours, an 8x8 diffuse texture, a normal map and a
+    five-channel 8x8 generic texture; a front triangle with shading normals
+    and a constant three-channel generic texture; a quad area light; and a
+    gradient envmap.  close=True moves the camera in until the back quad
+    fills the view (no camera ray misses)."""
+    import redner_tpu as rt
+
+    rng = np.random.default_rng(3)
+    cam = rt.make_camera(
+        position=[0.0, 0.1, -1.6] if close else [0.0, 0.3, -4.0],
+        look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0], fov=45.0,
+        resolution=res)
+    back = rt.make_shape(
+        vertices=[[-1.3, -1.2, 0.3], [1.2, -1.3, 0.2], [-1.2, 1.3, 0.2],
+                  [1.3, 1.2, 0.1]],
+        indices=[[0, 2, 1], [1, 2, 3]],
+        uvs=[[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]],
+        colors=rng.uniform(0.1, 0.9, (4, 3)).astype(np.float32),
+        material_id=0)
+    tri = rt.make_shape(
+        vertices=[[-0.6, -0.5, -0.5], [0.7, -0.4, -0.6], [0.0, 0.7, -0.4]],
+        indices=[[0, 1, 2]],
+        normals=[[0.1, 0.0, -1.0], [0.0, 0.1, -1.0], [-0.1, 0.0, -1.0]],
+        material_id=1)
+    light = rt.generate_quad_light(position=[0.0, 2.5, -1.5],
+                                   look_at=[0.0, 0.0, 0.0], size=[1.0, 1.0],
+                                   intensity=[8.0, 8.0, 8.0])
+    lshape = rt.make_shape(vertices=light.vertices, indices=light.indices,
+                           material_id=2, light_id=0)
+    nmap = np.concatenate([0.5 + 0.15 * rng.uniform(-1, 1, (8, 8, 2)),
+                           np.ones((8, 8, 1))], axis=-1).astype(np.float32)
+    textured = rt.make_material(
+        diffuse_reflectance=rng.uniform(0.2, 0.8, (8, 8, 3)).astype(
+            np.float32),
+        specular_reflectance=np.asarray([0.15, 0.15, 0.15], np.float32),
+        roughness=np.asarray([0.4], np.float32),
+        generic_texture=rt.make_texture(
+            rng.uniform(0, 1, (8, 8, 5)).astype(np.float32)),
+        normal_map=rt.make_texture(nmap))
+    plain = rt.make_material(
+        diffuse_reflectance=np.asarray([0.6, 0.3, 0.2], np.float32),
+        specular_reflectance=np.asarray([0.3, 0.3, 0.3], np.float32),
+        roughness=np.asarray([0.2], np.float32),
+        generic_texture=rt.make_texture(
+            np.asarray([0.25, 0.5, 0.75], np.float32)))
+    black = rt.make_material(diffuse_reflectance=np.zeros(3, np.float32))
+    h, w = 8, 16
+    y = np.linspace(0.2, 1.0, h, dtype=np.float32)[:, None, None]
+    x = np.linspace(0.3, 0.9, w, dtype=np.float32)[None, :, None]
+    values = np.concatenate([y * np.ones((1, w, 1), np.float32),
+                             x * np.ones((h, 1, 1), np.float32),
+                             0.5 * np.ones((h, w, 1), np.float32)], axis=-1)
+    env = rt.make_environment_map(values)
+    return rt.make_scene(cam, [back, tri, lshape], [textured, plain, black],
+                         area_lights=[rt.make_area_light(2, [8.0] * 3)],
+                         envmap=env)
