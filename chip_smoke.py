@@ -40,7 +40,13 @@ Phases (any failure exits non-zero):
              differently), compares the gradient with the one through the
              plain queries on the card (64x64) and with the CPU's (32x32),
              and times fwd+bwd, its peak memory, a profile of one gradient
-             evaluation and each kernel per launch on the edge-pair rays;
+             evaluation and each kernel per launch on the edge-pair rays.
+             The card-vs-CPU comparison is traced: both runs record every
+             discrete decision (hit ids, blocked, edge picks, Morton keys,
+             light / triangle / envmap picks), the lanes that differ are
+             counted per kind, and the card runs again with the CPU's
+             decisions replayed: what remains must agree to relative L2
+             1e-4;
   7. envtex  the slice's geometry with image textures and an envmap: the
              sphere carries a 512x512x3 diffuse texture, a 512x512x1
              roughness texture and a 512x512x3 normal map, and a 256x512x3
@@ -75,7 +81,28 @@ Phases (any failure exits non-zero):
              render, its peak memory, the CUDA kernels of one Sobol and
              one independent draw and a profile of one G-buffer
              gradient;
-  9. report  one `kernels` JSON line, the nvidia-smi line, and the final
+  9. files   the envtex scene written to a temporary directory as a user
+             ships one (write_files_scene): the sphere as an OBJ with
+             per-face split vertices at %.6g, its 512x512 diffuse texture
+             and the 256x512 envmap as EXR, a Mitsuba XML with a toWorld
+             lookat sensor and a 256x256 film (no roughness texture and no
+             normal map: the loader reads neither); loaded onto the card
+             and the CPU with rtt.load_mitsuba; the welded sphere's edge
+             table against the unsplit mesh's; then the launches of one
+             forward and one gradient (w.r.t. the sphere's vertices,
+             cam_to_world, intrinsic_mat, the diffuse and the envmap
+             texels), kernels against plain versions on every captured
+             batch, the image through the kernels against the plain
+             queries (64x64), card against CPU (32x32: image and each
+             leaf's gradient), fwd+bwd (median of 3) and peak memory;
+ 10. cameras the loaded scene under an orthographic, a fisheye, a panorama
+             and a distorted perspective camera (k1 = 0.1, p1 = 0.001), at
+             256x256 with the same checks (distortion_params among the
+             distorted camera's leaves; fwd+bwd median of 3 for the
+             fisheye, one call for the others); the fisheye's (dead lanes
+             outside the image circle, checked as misses) and the
+             panorama's camera-ray launches timed against their bounds;
+ 11. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
 It imports nothing of JAX or redner_tpu.
@@ -169,34 +196,24 @@ def _smooth_noise(rng, h, w, c, octaves=4):
     return (out - out.min()) / (out.max() - out.min())
 
 
-def make_envtex_scene(res=(256, 256), theta=64, phi=128, tex=512,
-                      env=(256, 512), seed=SEED, generic=0, device=None):
-    """The slice's scene with image textures and an environment map: the
-    sphere has a tex x tex x 3 diffuse texture, a tex x tex x 1 roughness
-    texture and a tex x tex x 3 normal map; an env[0] x env[1] x 3 HDR
-    envmap (sky gradient + one bright sun lobe, so that importance sampling
-    matters) lights the scene beside the quad light.  generic > 0 adds a
-    tex x tex x generic generic texture to the sphere and vertex colours
-    to the floor (the aov phase's scene).  Everything is made from `seed`
-    with numpy."""
+def envtex_arrays(tex=512, env=(256, 512), seed=SEED, generic=0):
+    """The envtex scene's images as numpy arrays, made from `seed`: the
+    sphere's tex x tex x 3 diffuse texture, tex x tex x 1 roughness and
+    tex x tex x 3 normal map, an env[0] x env[1] x 3 HDR envmap (sky
+    gradient + one bright sun lobe, so that importance sampling matters),
+    and with generic > 0 a tex x tex x generic generic texture."""
     rng = np.random.default_rng(seed)
     nz = _smooth_noise(rng, tex, tex, 2)
-    generic_texture = floor_colors = None
+    out = {"generic": None}
     if generic:
-        generic_texture = _smooth_noise(np.random.default_rng(seed + 1), tex,
-                                        tex, generic).astype(np.float32)
-        floor_colors = [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9],
-                        [0.9, 0.9, 0.2]]
-    textured = rtt.make_material(
-        diffuse_reflectance=(0.1 + 0.8 * _smooth_noise(rng, tex, tex, 3)
-                             ).astype(np.float32),
-        specular_reflectance=[0.2, 0.2, 0.2],
-        roughness=(0.05 + 0.45 * _smooth_noise(rng, tex, tex, 1)
-                   ).astype(np.float32),
-        generic_texture=generic_texture,
-        normal_map=np.concatenate([0.4 + 0.2 * nz, np.ones((tex, tex, 1))],
-                                  axis=-1).astype(np.float32),
-        device=device)
+        out["generic"] = _smooth_noise(np.random.default_rng(seed + 1), tex,
+                                       tex, generic).astype(np.float32)
+    out["diffuse"] = (0.1 + 0.8 * _smooth_noise(rng, tex, tex, 3)
+                      ).astype(np.float32)
+    out["roughness"] = (0.05 + 0.45 * _smooth_noise(rng, tex, tex, 1)
+                        ).astype(np.float32)
+    out["normal_map"] = np.concatenate(
+        [0.4 + 0.2 * nz, np.ones((tex, tex, 1))], axis=-1).astype(np.float32)
     eh, ew = env
     th = (np.arange(eh)[:, None] + 0.5) / eh
     ph = (np.arange(ew)[None, :] + 0.5) / ew
@@ -205,9 +222,29 @@ def make_envtex_scene(res=(256, 256), theta=64, phi=128, tex=512,
     sun_th, sun_ph = rng.uniform(0.15, 0.35), rng.uniform(0.0, 1.0)
     dph = np.minimum(np.abs(ph - sun_ph), 1 - np.abs(ph - sun_ph))
     sun = 200.0 * np.exp(-((th - sun_th) ** 2 + dph ** 2) / 2e-4)
-    values = (sky + sun[..., None] * np.asarray([1.0, 0.95, 0.8])
-              + rng.uniform(0, 0.02, (eh, ew, 3))).astype(np.float32)
-    envmap = rtt.make_environment_map(values, device=device)
+    out["envmap"] = (sky + sun[..., None] * np.asarray([1.0, 0.95, 0.8])
+                     + rng.uniform(0, 0.02, (eh, ew, 3))).astype(np.float32)
+    return out
+
+
+def make_envtex_scene(res=(256, 256), theta=64, phi=128, tex=512,
+                      env=(256, 512), seed=SEED, generic=0, device=None):
+    """The slice's scene with image textures and an environment map
+    (envtex_arrays): the sphere has a diffuse texture, a roughness texture
+    and a normal map, and the HDR envmap lights the scene beside the quad
+    light.  generic > 0 adds a generic texture to the sphere and vertex
+    colours to the floor (the aov phase's scene)."""
+    arr = envtex_arrays(tex, env, seed, generic)
+    floor_colors = None
+    if generic:
+        floor_colors = [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9],
+                        [0.9, 0.9, 0.2]]
+    textured = rtt.make_material(
+        diffuse_reflectance=arr["diffuse"],
+        specular_reflectance=[0.2, 0.2, 0.2], roughness=arr["roughness"],
+        generic_texture=arr["generic"], normal_map=arr["normal_map"],
+        device=device)
+    envmap = rtt.make_environment_map(arr["envmap"], device=device)
     return make_slice_scene(res, theta, phi, sphere_material=textured,
                             envmap=envmap, floor_colors=floor_colors,
                             device=device)
@@ -643,6 +680,159 @@ def _pair_split(hit_a, hit_b, live):
     return float(((hit_a != hit_b) & live).sum()) / max(n, 1), n
 
 
+# ----------------------------------------------------------------------
+# The card against the CPU, decision by decision
+# ----------------------------------------------------------------------
+
+REPLAY_L2_MAX = 1e-4  # what remains once every discrete decision is shared
+
+
+def _decision_points():
+    """(module, attribute) of every function whose result is a discrete
+    decision of the gradient path: the ray queries (hit ids, blocked), the
+    primary-edge pick (edge id) and the secondary-edge picks (cluster,
+    candidate, t), the Morton codes that order the primary-edge samples
+    and the edge clusters, and the light, triangle and envmap picks."""
+    from redner_tpu_torch import edge as edge_mod
+    from redner_tpu_torch.core import vecmath as vm_mod
+    return [(accel, "intersect"), (accel, "occluded"),
+            (edge_mod, "_count_le"), (edge_mod, "_count_lt"),
+            (edge_mod, "_morton3"), (vm_mod, "searchsorted_right")]
+
+
+def _decision_category(name):
+    """The trace's row for a decision made by function `name`, from the
+    pass that called it."""
+    f = sys._getframe(2)
+    caller = f.f_code.co_name
+    names = []
+    while f is not None:
+        names.append(f.f_code.co_name)
+        f = f.f_back
+    if "_sample_primary_edges" in names:
+        where = "primary-edge pass"
+    elif "secondary_edge_surrogate" in names or "build_edge_table" in names:
+        where = "secondary-edge pass"
+    else:
+        where = "camera paths"
+    what = {"intersect": "hit ids", "occluded": "shadow blocked",
+            "_count_le": "edge picks (edge id)",
+            "_count_lt": "edge picks (cluster, candidate, t)",
+            "_morton3": "Morton order keys",
+            "searchsorted_right": "light / triangle / envmap picks"}[name]
+    if name == "intersect" and where == "camera paths":
+        what = "camera-ray hit ids" if caller == "render_sample" \
+            else "bounce hit ids"
+    elif name == "intersect":
+        what = "pair-ray hit ids"
+    return f"{where}: {what}"
+
+
+def _host(out):
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu()
+    return dataclasses.replace(out, **{
+        f.name: getattr(out, f.name).detach().cpu()
+        for f in dataclasses.fields(out)})
+
+
+def _on(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return dataclasses.replace(x, **{f.name: getattr(x, f.name).to(dev)
+                                     for f in dataclasses.fields(x)})
+
+
+def _ids(x):
+    return x if isinstance(x, torch.Tensor) else x.tri_id
+
+
+class Decisions:
+    """Records every discrete decision of the code inside the `with` block
+    (see _decision_points), in call order, as host copies; with `replay`
+    (another run's record) each call returns the replayed decision instead
+    of its own (the call still runs, so the kernels still launch)."""
+
+    def __init__(self, replay=None):
+        self.log = []
+        self.replay = replay
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in _decision_points()]
+        for m, n, orig in self.saved:
+            setattr(m, n, self._wrap(n, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, orig in self.saved:
+            setattr(m, n, orig)
+
+    def _wrap(self, name, orig):
+        def call(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            cat = _decision_category(name)
+            own = _host(out)
+            if self.replay is not None:
+                r_cat, r_val = self.replay[len(self.log)]
+                _check(r_cat == cat and _ids(r_val).shape == _ids(own).shape,
+                       f"replay out of step at decision {len(self.log)}: "
+                       f"{cat} vs {r_cat}")
+                out = _on(r_val, _ids(out).device)
+            self.log.append((cat, own))
+            return out
+        return call
+
+
+def decision_differences(a, b):
+    """{category: (lanes, lanes that differ)} between two records."""
+    _check(len(a) == len(b) and all(x[0] == y[0] for x, y in zip(a, b)),
+           f"the two runs made different decision calls ({len(a)} vs "
+           f"{len(b)})")
+    out = {}
+    for (cat, x), (_, y) in zip(a, b):
+        n, d = out.get(cat, (0, 0))
+        out[cat] = (n + _ids(x).numel(), d + int((_ids(x) != _ids(y)).sum()))
+    return out
+
+
+def trace_card_vs_cpu(opts):
+    """The 32x32 gradient on the card against the CPU's (slice scene, seed
+    SEED): both runs record every discrete decision (Decisions); the trace
+    prints how many lanes differ in each, then runs the card again with
+    the CPU's decisions replayed.  What remains must agree to relative L2
+    REPLAY_L2_MAX: then the card-vs-CPU difference is those flips."""
+    dev = torch.device("cuda")
+    with Decisions() as rec_card:
+        gc = gradient(make_slice_scene(res=(32, 32), device=dev), opts)
+    with Decisions() as rec_cpu:
+        gh = gradient(make_slice_scene(res=(32, 32), device="cpu"), opts)
+    for name, a, b in zip(GRAD_LEAVES, gc, gh):
+        rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        print(f"[grad] 32x32 card vs CPU, d/d {name}: relative L2 {rel:.3e}",
+              flush=True)
+        _check(rel <= GRAD_L2_MAX, f"card and CPU gradients differ: {name}")
+    diffs = decision_differences(rec_card.log, rec_cpu.log)
+    print(f"[trace] 32x32 card vs CPU: {len(rec_cpu.log)} decision calls",
+          flush=True)
+    for cat, (n, d) in diffs.items():
+        print(f"[trace] {cat}: {d} of {n} lanes differ", flush=True)
+    with Decisions(replay=rec_cpu.log) as rec_replay:
+        gr = gradient(make_slice_scene(res=(32, 32), device=dev), opts)
+    flips = sum(d for _, d in decision_differences(rec_replay.log,
+                                                   rec_cpu.log).values())
+    worst = 0.0
+    for name, a, b in zip(GRAD_LEAVES, gr, gh):
+        rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        print(f"[trace] card with the CPU's decisions vs CPU, d/d {name}: "
+              f"relative L2 {rel:.3e}", flush=True)
+    print(f"[trace] the card's own decisions in the replayed run differ on "
+          f"{flips} lanes; what remains: relative L2 {worst:.3e} (gate "
+          f"{REPLAY_L2_MAX})", flush=True)
+    _check(worst <= REPLAY_L2_MAX, "the card-vs-CPU gradient difference is "
+           "not the decision flips alone")
+
+
 def phase_grad(scene, opts, smi_line):
     """The gradient path once with the launch counts zeroed just before and
     read just after; then its checks and times.  Returns (launches, rows
@@ -719,14 +909,8 @@ def phase_grad(scene, opts, smi_line):
               f"L2 {rel:.3e}", flush=True)
         _check(bad == 0, f"gradient via kernels differs from plain: {name}")
 
-    # The card against the CPU.
-    gc = gradient(make_slice_scene(res=(32, 32), device=dev), opts)
-    gh = gradient(make_slice_scene(res=(32, 32), device="cpu"), opts)
-    for name, a, b in zip(GRAD_LEAVES, gc, gh):
-        rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
-        print(f"[grad] 32x32 card vs CPU, d/d {name}: relative L2 {rel:.3e}",
-              flush=True)
-        _check(rel <= GRAD_L2_MAX, f"card and CPU gradients differ: {name}")
+    # The card against the CPU, traced decision by decision.
+    trace_card_vs_cpu(opts)
 
     # Times.
     torch.cuda.reset_peak_memory_stats()
@@ -1238,6 +1422,323 @@ def phase_aov(smi_line):
     return rows, big_row
 
 
+# ----------------------------------------------------------------------
+# The files and cameras phases: the envtex scene written to disk, loaded
+# back through the Mitsuba loader, and rendered under every camera type
+# ----------------------------------------------------------------------
+
+FILE_JITTER = 2.5e-7  # split-vertex jitter: with %.6g, inside the weld eps
+DISTORTION = [0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 0.001, 0.0]  # k1, p1
+CAMERAS = ("orthographic", "fisheye", "panorama", "distorted")
+
+
+def write_files_scene(root, res=(256, 256), theta=64, phi=128, tex=512,
+                      env=(256, 512), seed=SEED):
+    """Write the envtex scene under `root` as a user would ship it: the
+    sphere as an OBJ whose faces each have their own three vertices
+    (positions jittered by up to FILE_JITTER and written at %.6g, so the
+    auto weld has work), the same sphere unsplit (whole.obj), the diffuse
+    texture and the envmap as EXR, and a Mitsuba XML: a sensor with a
+    toWorld lookat and a res film, the sphere's bitmap-textured diffuse
+    bsdf, the floor and the light as rectangles, the envmap emitter.  The
+    loader reads no roughness texture and no normal map, so the scene has
+    neither.  Returns the XML's path."""
+    arr = envtex_arrays(tex, env, seed)
+    rtt.imwrite(arr["diffuse"], os.path.join(root, "diffuse.exr"))
+    rtt.imwrite(arr["envmap"], os.path.join(root, "envmap.exr"))
+    v, f, uv, n = (x.numpy() for x in rtt.generate_sphere(theta, phi,
+                                                          device="cpu"))
+    corners = f.reshape(-1)
+    jitter = np.random.default_rng(seed).uniform(
+        -FILE_JITTER, FILE_JITTER, (corners.size, 3))
+    lines = []
+    for p, t, m in zip(v[corners] + jitter, uv[corners], n[corners]):
+        lines.append(f"v {p[0]:.6g} {p[1]:.6g} {p[2]:.6g}\n"
+                     f"vt {t[0]:.6g} {1.0 - t[1]:.6g}\n"
+                     f"vn {m[0]:.6g} {m[1]:.6g} {m[2]:.6g}\n")
+    for k in range(f.shape[0]):
+        a = 3 * k + 1
+        lines.append(f"f {a}/{a}/{a} {a + 1}/{a + 1}/{a + 1} "
+                     f"{a + 2}/{a + 2}/{a + 2}\n")
+    with open(os.path.join(root, "sphere.obj"), "w") as out:
+        out.writelines(lines)
+    with open(os.path.join(root, "whole.obj"), "w") as out:
+        out.writelines(f"v {p[0]:.6g} {p[1]:.6g} {p[2]:.6g}\n" for p in v)
+        out.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+    xml = os.path.join(root, "scene.xml")
+    with open(xml, "w") as out:
+        out.write(f"""<scene version="0.5.0">
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld">
+      <lookat origin="0, 1, -4.5" target="0, -0.2, 0" up="0, 1, 0"/>
+    </transform>
+    <film type="hdrfilm">
+      <integer name="width" value="{res[1]}"/>
+      <integer name="height" value="{res[0]}"/>
+    </film>
+  </sensor>
+  <bsdf type="diffuse" id="textured">
+    <texture type="bitmap" name="reflectance">
+      <string name="filename" value="diffuse.exr"/>
+    </texture>
+  </bsdf>
+  <bsdf type="diffuse" id="gray">
+    <rgb name="reflectance" value="0.4, 0.4, 0.4"/>
+  </bsdf>
+  <shape type="obj">
+    <string name="filename" value="sphere.obj"/>
+    <ref id="textured"/>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <scale value="4"/><rotate x="1" y="0" z="0" angle="-90"/>
+      <translate x="0" y="-1" z="0"/>
+    </transform>
+    <ref id="gray"/>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <lookat origin="0, 4, -1" target="0, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <emitter type="area"><rgb name="radiance" value="20, 20, 20"/></emitter>
+  </shape>
+  <emitter type="envmap">
+    <string name="filename" value="envmap.exr"/>
+  </emitter>
+</scene>
+""")
+    return xml
+
+
+def edge_counts(shape, device):
+    """(edges, boundary edges) of one shape's welded edge table."""
+    from redner_tpu_torch.edge import build_edges
+
+    cam = rtt.make_camera(position=[0, 0, -5], look_at=[0, 0, 0], up=[0, 1, 0],
+                          fov=45.0, resolution=(4, 4), device=device)
+    mat = rtt.make_material(diffuse_reflectance=[0.5] * 3, device=device)
+    e = build_edges(rtt.flatten_scene(rtt.make_scene(cam, [shape], [mat])))
+    return int(e.valid.sum()), int((e.valid & (e.f1 < 0)).sum())
+
+
+def with_camera(scene, name, res=None):
+    """The loaded scene under camera `name` (CAMERAS, or "perspective" for
+    its own), from the same cam_to_world, at resolution res."""
+    c = scene.camera
+    res = res or c.resolution
+    if name == "perspective":
+        return dataclasses.replace(scene, camera=dataclasses.replace(
+            c, resolution=res))
+    kw = {"orthographic": dict(camera_type=rtt.CameraType.orthographic,
+                               intrinsic_mat=np.diag([0.3, 0.3, 1.0])),
+          "fisheye": dict(camera_type=rtt.CameraType.fisheye),
+          "panorama": dict(camera_type=rtt.CameraType.panorama),
+          "distorted": dict(intrinsic_mat=c.intrinsic_mat.detach().clone(),
+                            distortion_params=DISTORTION)}[name]
+    cam = rtt.make_camera(cam_to_world=c.cam_to_world.detach().clone(),
+                          resolution=res, device=c.device, **kw)
+    return dataclasses.replace(scene, camera=cam)
+
+
+def camera_leaves(scene):
+    """(label, tensor) of the loaded scene's leaves that its camera uses:
+    the sphere's vertices, cam_to_world, intrinsic_mat (perspective and
+    orthographic), distortion_params (distorted), the diffuse texels and
+    the envmap texels."""
+    c = scene.camera
+    out = [("sphere vertices", scene.shapes[0].vertices),
+           ("cam_to_world", c.cam_to_world)]
+    if c.camera_type in (rtt.CameraType.perspective,
+                         rtt.CameraType.orthographic):
+        out.append(("intrinsic_mat", c.intrinsic_mat))
+    if c.has_distortion:
+        out.append(("distortion_params", c.distortion_params))
+    return out + [("diffuse texels",
+                   scene.materials[0].diffuse_reflectance.texels),
+                  ("envmap texels", scene.envmap.values.texels)]
+
+
+def leaf_gradient(scene, opts, engine=None):
+    """d render(scene).sum() / d camera_leaves(scene), both edge samplers."""
+    leaves = [x for _, x in camera_leaves(scene)]
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        loss = rtt.render(scene, opts, seed=SEED, engine=engine).sum()
+        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def check_scene_paths(tag, camera, scene, scene_cpu, opts, smi_line, reps):
+    """One scene (the loaded scene under `camera`, see with_camera) and its
+    forward and gradient: launches (counted), kernels
+    against plain versions on every captured batch, finite outputs, the
+    image through the kernels against the plain queries (64x64), the card
+    against the CPU (32x32: image and every leaf's gradient), fwd+bwd wall
+    (median of `reps`, after a warm-up when reps > 1) and peak memory.
+    Returns (row, the forward's captured batches, FlatScene)."""
+    fs = rtt.flatten_scene(scene)
+    with torch.no_grad():
+        ic.reset_launch_counts()
+        out = []
+        fwd_cap = capture_launches(
+            lambda: out.append(rtt.render_image(scene, opts, seed=SEED)))
+        row = {"launches": dict(ic.LAUNCHES)}
+    img = out[0]
+    ic.reset_launch_counts()
+    grads = []
+    grad_cap = capture_launches(
+        lambda: grads.extend(leaf_gradient(scene, opts)))
+    row["launches_per_gradient"] = dict(ic.LAUNCHES)
+    print(f"[{tag}] launches per forward {row['launches']}, per gradient "
+          f"{row['launches_per_gradient']}", flush=True)
+    _check(all(v > 0 for v in row["launches"].values())
+           and all(v > 0 for v in row["launches_per_gradient"].values()),
+           f"{tag}: a kernel did not launch: {row}")
+    _check(bool(torch.isfinite(img).all()) and float(img.max()) > 0,
+           f"{tag}: image not finite or black")
+    for (label, _), g in zip(camera_leaves(scene), grads):
+        print(f"[{tag}] d/d {label}: shape {tuple(g.shape)}, max |g| "
+              f"{float(g.abs().max()):.6g}", flush=True)
+        _check(bool(torch.isfinite(g).all()), f"{tag}: non-finite gradient "
+               f"w.r.t. {label}")
+        _check(float(g.abs().max()) > 0, f"{tag}: zero gradient w.r.t. "
+               f"{label}")
+    n, lanes, bad = check_batches(tag, fs, fwd_cap + grad_cap)
+    print(f"[{tag}] {n} batches, {lanes} lanes against the plain versions, "
+          f"{bad} differ", flush=True)
+
+    s64 = with_camera(scene, camera, (64, 64))
+    with torch.no_grad():
+        k = rtt.render_image(s64, opts, seed=SEED)
+        p = rtt.render_image(s64, opts, seed=SEED, engine="plain")
+    f_ok, _ = image_agreement(tag, k, p)
+    print(f"[{tag}] 64x64 kernels vs plain: {f_ok:.6f} of the pixels within "
+          f"rtol 1e-4", flush=True)
+    _check(f_ok >= PIXEL_AGREE_MIN, f"{tag}: the kernels' image differs")
+    sc = with_camera(scene, camera, (32, 32))
+    sh = with_camera(scene_cpu, camera, (32, 32))
+    with torch.no_grad():
+        a = rtt.render_image(sc, opts, seed=SEED)
+        b = rtt.render_image(sh, opts, seed=SEED)
+    f_ok, _ = image_agreement(tag, a, b)
+    print(f"[{tag}] 32x32 card vs CPU: {f_ok:.6f} of the pixels within rtol "
+          f"1e-4", flush=True)
+    _check(f_ok >= IMAGE_AGREE_MIN, f"{tag}: card and CPU images differ")
+    for (label, _), x, y in zip(camera_leaves(sc), leaf_gradient(sc, opts),
+                                leaf_gradient(sh, opts)):
+        rel = float((x.cpu() - y).norm() / y.norm().clamp_min(1e-30))
+        print(f"[{tag}] 32x32 card vs CPU, d/d {label}: relative L2 "
+              f"{rel:.3e}", flush=True)
+        _check(rel <= GRAD_L2_MAX, f"{tag}: card and CPU gradients differ "
+               f"({label})")
+
+    if reps > 1:
+        leaf_gradient(scene, opts)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    row["gradient_ms"], walls = _wall_ms(lambda: leaf_gradient(scene, opts),
+                                         reps=reps)
+    row["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[{tag}] fwd+bwd {scene.camera.height}x{scene.camera.width} "
+          f"4spp 1 bounce: median {row['gradient_ms']:.3f} ms of {reps} "
+          f"(all: {', '.join(f'{w:.2f}' for w in walls)}); peak memory "
+          f"{row['peak_mib']:.1f} MiB; {smi_line}", flush=True)
+    return row, fwd_cap, fs
+
+
+def phase_files(opts, smi_line):
+    """The envtex scene from files: written (write_files_scene), loaded with
+    rtt.load_mitsuba onto the card and the CPU, the welded sphere's edge
+    table against the unsplit mesh's, then check_scene_paths.  Returns
+    (row, the loaded card scene, the CPU scene)."""
+    import tempfile
+
+    dev = torch.device("cuda")
+    lap = _Lap(time.perf_counter())
+    with tempfile.TemporaryDirectory() as root:
+        xml = write_files_scene(root)
+        lap("files written")
+        t0 = time.perf_counter()
+        scene = rtt.load_mitsuba(xml, device=dev)
+        load_s = time.perf_counter() - t0
+        scene_cpu = rtt.load_mitsuba(xml, device="cpu")
+        whole = rtt.load_obj(os.path.join(root, "whole.obj"),
+                             return_objects=True, device=dev)[0]
+    sphere = scene.shapes[0]
+    fs = rtt.flatten_scene(scene)
+    tex = scene.materials[0].diffuse_reflectance.texels
+    print(f"[files] loaded in {load_s:.2f} s: {len(scene.shapes)} shapes, "
+          f"{fs.num_triangles} triangles, camera cam_to_world (use_look_at "
+          f"{scene.camera.use_look_at}), film {scene.camera.resolution}, "
+          f"diffuse texture {tuple(tex.shape)}, envmap "
+          f"{tuple(scene.envmap.values.texels.shape)}; the Mitsuba "
+          f"loader reads no roughness texture and no normal map, so the "
+          f"scene has neither", flush=True)
+    _check(fs.num_triangles == 15752 and fs.has_envmap
+           and scene.camera.resolution == (256, 256)
+           and tex.shape == (512, 512, 3), "files scene: want 15752 triangles, an "
+           "envmap, a 256x256 film and the 512x512 texture")
+    _check(sphere.weld_ids is not None, "the split sphere was not welded")
+    moved = int((sphere.vertices[sphere.weld_ids] != sphere.vertices)
+                .any(dim=-1).sum())
+    split = edge_counts(rtt.make_shape(vertices=sphere.vertices,
+                                       indices=sphere.indices,
+                                       weld_ids=sphere.weld_ids, device=dev),
+                        dev)
+    ref = edge_counts(rtt.make_shape(vertices=whole.vertices,
+                                     indices=whole.indices,
+                                     weld_ids=whole.weld_ids, device=dev),
+                      dev)
+    print(f"[files] sphere: {sphere.num_vertices} split vertices, {moved} "
+          f"keyed on another vertex's position by the weld; edges, boundary "
+          f"edges: welded {split}, unsplit mesh {ref}", flush=True)
+    _check(moved > 0 and split == ref, "the welded sphere's edge table "
+           "differs from the unsplit mesh's")
+    lap("files loaded, weld checked")
+    row, _, _ = check_scene_paths("files", "perspective", scene, scene_cpu,
+                                  opts, smi_line, reps=3)
+    row["load_s"] = load_s
+    lap("files paths")
+    return row, scene, scene_cpu
+
+
+def phase_cameras(scene, scene_cpu, opts, smi_line):
+    """The loaded scene under the orthographic, fisheye, panorama and
+    distorted perspective cameras at 256x256: check_scene_paths for each
+    (fwd+bwd median of 3 for the fisheye, one call for the others); the
+    fisheye's and the panorama's camera-ray batch timed against its bound,
+    the fisheye's dead lanes checked as misses.  Returns {camera: row}."""
+    rows = {}
+    for name in CAMERAS:
+        t0 = time.perf_counter()
+        row, fwd_cap, fs = check_scene_paths(
+            name, name, with_camera(scene, name), scene_cpu, opts, smi_line,
+            reps=3 if name == "fisheye" else 1)
+        if name in ("fisheye", "panorama"):
+            kind, rb = fwd_cap[0]
+            _check(kind == "closest_hit", "the first forward batch is not "
+                   "the camera rays")
+            dead = 1.0 - float(rb.live.float().mean())
+            with torch.no_grad():
+                best_t, _ = ic.closest_hit(fs.layout, rb)
+            misses = bool(torch.isinf(best_t[: rb.n][~rb.live]).all())
+            print(f"[{name}] camera-ray batch: {rb.n} rays, dead-lane share "
+                  f"{dead:.4f}; dead lanes come back as misses: {misses}",
+                  flush=True)
+            _check(misses, f"{name}: a dead lane hit something")
+            _check((dead > 0.2) == (name == "fisheye"),
+                   f"{name}: dead-lane share {dead}")
+            row["camera_batch"] = dict(dead_share=dead, **measure_launch(
+                f"{name} camera rays", "closest_hit", fs, rb))
+        rows[name] = row
+        print(f"[timing] cameras {name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return rows
+
+
 class _Lap:
     """Prints the seconds each phase took, on the host clock."""
 
@@ -1284,6 +1785,10 @@ def main():
     lap("envtex")
     aov_rows, aov_big = phase_aov(smi_line)
     lap("aov")
+    files_row, loaded, loaded_cpu = phase_files(opts, smi_line)
+    lap("files")
+    cam_rows = phase_cameras(loaded, loaded_cpu, opts, smi_line)
+    lap("cameras")
 
     kernels = []
     for kind, rows in per.items():
@@ -1320,12 +1825,23 @@ def main():
             name: {k: (v[kind] if k.startswith("launches") else v)
                    for k, v in row.items()}
             for name, row in aov_rows.items()}
+        kernels[-1]["files"] = {
+            k: (v[kind] if k.startswith("launches") else v)
+            for k, v in files_row.items()}
+        kernels[-1]["cameras"] = {
+            name: {k: (v[kind] if k.startswith("launches") else v)
+                   for k, v in row.items() if k != "camera_batch"}
+            for name, row in cam_rows.items()}
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {
                 k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}
         else:
             kernels[-1]["aov"]["deferred_batch_262144"] = {
                 k: aov_big[k] for k in ("ms", "plain_ms", "bound_ms")}
+            for name in ("fisheye", "panorama"):
+                kernels[-1]["cameras"][name]["camera_batch"] = {
+                    k: cam_rows[name]["camera_batch"][k]
+                    for k in ("dead_share", "ms", "plain_ms", "bound_ms")}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

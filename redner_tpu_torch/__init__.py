@@ -2,7 +2,8 @@
 Monte Carlo path tracer (Li et al. 2018, "Differentiable Monte Carlo Ray
 Tracing through Edge Sampling").
 
-Ported so far: the forward render (`render_image`) on a perspective camera,
+Ported so far: the forward render (`render_image`) under perspective,
+orthographic, fisheye and panorama cameras with optional lens distortion,
 triangle meshes with constant or mipmapped image-texture materials (the
 MaterialBank), normal maps and generic textures, area lights, a lat-long
 environment map, the independent and Sobol samplers and all 16 AOV
@@ -12,7 +13,10 @@ torch.autograd.Function whose backward adds primary and secondary edge
 sampling (the visibility gradients) to the continuous ones; the screen
 gradient (`screen_gradient_image`); and the pyredner-style utilities
 (`render_g_buffer`, `render_deferred`, `render_albedo`,
-`render_pathtracing`, `render_generic`, spherical harmonics, sRGB).
+`render_pathtracing`, `render_generic`, spherical harmonics, sRGB); scenes
+from files (`load_obj`, `load_mitsuba`, `load_serialized`, EXR through
+`imread`/`imwrite`) with load-time welds, the mesh helpers and scene
+checkpoints (`save_scene`/`load_scene`).
 torch.autograd through `render_image` alone gives only the continuous
 gradients.
 
@@ -25,14 +29,24 @@ from redner_tpu_torch.device import resolve_device, set_numerics
 
 set_numerics()
 
-from redner_tpu_torch.camera import Camera, CameraType, make_camera  # noqa: E402
+from redner_tpu_torch.camera import (Camera, CameraType,  # noqa: E402
+                                     automatic_camera_placement,
+                                     generate_intrinsic_mat, make_camera)
 from redner_tpu_torch.channels import ChannelInfo, Channels  # noqa: E402
 from redner_tpu_torch.convert import scene_from_arrays  # noqa: E402
 from redner_tpu_torch.envmap import (EnvironmentMap,  # noqa: E402
                                      make_environment_map)
-from redner_tpu_torch.geometry import Shape, make_shape  # noqa: E402
+from redner_tpu_torch.geometry import (Shape, bound_vertices,  # noqa: E402
+                                       compute_uvs, compute_vertex_normal,
+                                       make_shape, smooth)
+from redner_tpu_torch.geometry_images import (  # noqa: E402
+    generate_geometry_image)
+from redner_tpu_torch.io import (imread, imwrite, load_mitsuba,  # noqa: E402
+                                 load_obj, load_serialized, save_mtl,
+                                 save_obj)
 from redner_tpu_torch.light import AreaLight, make_area_light  # noqa: E402
 from redner_tpu_torch.material import Material, make_material  # noqa: E402
+from redner_tpu_torch.meshops import load_obj_fast, weld_mesh  # noqa: E402
 from redner_tpu_torch.object import Object, scene_from_objects  # noqa: E402
 from redner_tpu_torch.render import RenderOptions, render_image  # noqa: E402
 from redner_tpu_torch.render_grad import (  # noqa: E402
@@ -46,6 +60,9 @@ from redner_tpu_torch.sampler import SamplerType  # noqa: E402
 from redner_tpu_torch.scene import Scene, flatten_scene, make_scene  # noqa: E402
 from redner_tpu_torch.screen_gradient import (  # noqa: E402
     screen_gradient_image, visualize_screen_gradient)
+from redner_tpu_torch.serialize import (load_scene,  # noqa: E402
+                                        load_state_dict, save_scene,
+                                        state_dict)
 from redner_tpu_torch.texture import Texture, make_texture  # noqa: E402
 from redner_tpu_torch.utils import (generate_quad_light,  # noqa: E402
                                     generate_sphere, linear_to_srgb,
@@ -56,14 +73,19 @@ __all__ = [
     "AmbientLight", "AreaLight", "Camera", "CameraType", "ChannelInfo",
     "Channels", "DirectionalLight", "EnvironmentMap", "Material", "Object",
     "PointLight", "RenderOptions", "SamplerType", "Scene", "Shape",
-    "SpotLight", "Texture", "flatten_scene", "generate_quad_light",
-    "generate_sphere", "get_use_correlated_random_number",
-    "linear_to_srgb", "make_area_light", "make_camera",
-    "make_environment_map", "make_material", "make_scene", "make_shape",
-    "make_texture", "render", "render_albedo", "render_deferred",
-    "render_g_buffer", "render_generic", "render_image",
-    "render_pathtracing", "resolve_device", "scene_from_arrays",
-    "scene_from_objects", "screen_gradient_image",
-    "set_use_correlated_random_number", "sh_basis", "sh_eval",
-    "sh_reconstruct", "srgb_to_linear", "visualize_screen_gradient",
+    "SpotLight", "Texture", "automatic_camera_placement", "bound_vertices",
+    "compute_uvs", "compute_vertex_normal", "flatten_scene",
+    "generate_geometry_image", "generate_intrinsic_mat",
+    "generate_quad_light", "generate_sphere",
+    "get_use_correlated_random_number", "imread", "imwrite",
+    "linear_to_srgb", "load_mitsuba", "load_obj", "load_obj_fast",
+    "load_scene", "load_serialized", "load_state_dict", "make_area_light",
+    "make_camera", "make_environment_map", "make_material", "make_scene",
+    "make_shape", "make_texture", "render", "render_albedo",
+    "render_deferred", "render_g_buffer", "render_generic", "render_image",
+    "render_pathtracing", "resolve_device", "save_mtl", "save_obj",
+    "save_scene", "scene_from_arrays", "scene_from_objects",
+    "screen_gradient_image", "set_use_correlated_random_number", "sh_basis",
+    "sh_eval", "sh_reconstruct", "smooth", "srgb_to_linear", "state_dict",
+    "visualize_screen_gradient", "weld_mesh",
 ]

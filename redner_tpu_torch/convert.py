@@ -4,11 +4,14 @@
 `scene_from_arrays(d, device)` takes a nested dict of numpy arrays and
 Python scalars:
 
-    {"camera": {"position", "look_at", "up": (3,), "fov": degrees,
-                "resolution": (h, w)},
+    {"camera": {"position", "look_at", "up": (3,) or "cam_to_world": (4, 4),
+                "fov": degrees or "intrinsic_mat": (3, 3),
+                "resolution": (h, w), optional "distortion_params": (8,),
+                "camera_type": a CameraType name, "viewport": (top, left,
+                bottom, right), "clip_near": float},
      "shapes": [{"vertices": (V, 3), "indices": (F, 3),
                  optional "uvs", "normals", "uv_indices", "normal_indices",
-                 "colors", and "material_id", "light_id": int}],
+                 "colors", "weld_ids", and "material_id", "light_id": int}],
      "materials": [{"diffuse_reflectance": (3,) or (H, W, 3),
                     "specular_reflectance": (3,) or (H, W, 3),
                     "roughness": (1,) or (H, W, 1),
@@ -31,7 +34,7 @@ import dataclasses
 
 import torch
 
-from redner_tpu_torch.camera import make_camera
+from redner_tpu_torch.camera import CameraType, make_camera
 from redner_tpu_torch.device import resolve_device
 from redner_tpu_torch.envmap import make_environment_map
 from redner_tpu_torch.geometry import make_shape
@@ -40,16 +43,20 @@ from redner_tpu_torch.material import Material
 from redner_tpu_torch.scene import Scene, make_scene
 from redner_tpu_torch.texture import make_texture
 
-_SHAPE_ARRAYS = ("uvs", "normals", "uv_indices", "normal_indices", "colors")
+_SHAPE_ARRAYS = ("uvs", "normals", "uv_indices", "normal_indices", "colors",
+                 "weld_ids")
+_CAMERA_KEYS = ("position", "look_at", "up", "fov", "cam_to_world",
+                "intrinsic_mat", "distortion_params", "viewport")
 
 
 def scene_from_arrays(d: dict, device=None, dtype=torch.float32) -> Scene:
     dev = resolve_device(device)
     c = d["camera"]
     camera = make_camera(
-        position=c["position"], look_at=c["look_at"], up=c["up"],
-        fov=c["fov"], resolution=tuple(c["resolution"]), dtype=dtype,
-        device=dev,
+        **{k: c.get(k) for k in _CAMERA_KEYS},
+        camera_type=CameraType[c.get("camera_type", "perspective")],
+        clip_near=float(c.get("clip_near", 1e-4)),
+        resolution=tuple(c["resolution"]), dtype=dtype, device=dev,
     )
     shapes = [
         make_shape(

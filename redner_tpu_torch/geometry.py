@@ -31,6 +31,11 @@ class Shape:
     colors: Optional[torch.Tensor] = None  # (V, 3)
     material_id: int = 0
     light_id: int = -1
+    # (V,) int64 canonical vertex id from a load-time eps weld
+    # (meshops.weld_ids): a keying map for edge extraction only; the
+    # rendered geometry keeps the split vertices (reference analog:
+    # rebuild_topology at load, src/rebuild_topology.cpp:9-50).
+    weld_ids: Optional[torch.Tensor] = None
 
     @property
     def num_vertices(self):
@@ -43,7 +48,7 @@ class Shape:
 
 def make_shape(vertices, indices, uvs=None, normals=None, uv_indices=None,
                normal_indices=None, colors=None, material_id=0, light_id=-1,
-               dtype=torch.float32, device=None) -> Shape:
+               weld_ids=None, dtype=torch.float32, device=None) -> Shape:
     dev = resolve_device(device)
     cast = lambda x: None if x is None else torch.as_tensor(
         x, dtype=dtype, device=dev)
@@ -59,6 +64,7 @@ def make_shape(vertices, indices, uvs=None, normals=None, uv_indices=None,
         colors=cast(colors),
         material_id=int(material_id),
         light_id=int(light_id),
+        weld_ids=icast(weld_ids),
     )
 
 
@@ -240,3 +246,107 @@ def tri_areas(vertices, indices):
     v1 = vertices[indices[:, 1]]
     v2 = vertices[indices[:, 2]]
     return 0.5 * vm.length(vm.cross(v1 - v0, v2 - v0))
+
+
+# ------------------------------------------------------------------
+# Mesh utilities (reference: pyredner/shape.py:7-326)
+# ------------------------------------------------------------------
+
+
+def _safe_asin(x):
+    return torch.arcsin(torch.clamp(x, 0.0, 1.0 - 1e-6))
+
+
+def _corner_angles(v, i):
+    """Per-face angle at corner i, its two edge vectors and the face's unit
+    normal (pyredner/shape.py:30-55)."""
+    v0, v1, v2 = v[i], v[(i + 1) % 3], v[(i + 2) % 3]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    side_a = vm.normalize(e1)
+    side_b = vm.normalize(e2)
+    angle = torch.where(
+        vm.dot(side_a, side_b) < 0,
+        torch.pi - 2.0 * _safe_asin(0.5 * vm.length(side_a + side_b)),
+        2.0 * _safe_asin(0.5 * vm.length(side_b - side_a)),
+    )
+    return angle, e1, e2, side_a, side_b
+
+
+def compute_vertex_normal(vertices, indices, weighting_scheme: str = "max"):
+    """Vertex normals, differentiable: 'max' is Nelson Max's
+    inverse-length-sine weighting, 'cotangent' follows Desbrun et al.
+    (pyredner/shape.py:7-127).  A vertex without a normal gets +z ('max')
+    or its 'max' normal ('cotangent')."""
+    indices = torch.as_tensor(indices, dtype=torch.int64,
+                              device=vertices.device)
+    v = [vertices[indices[:, i]] for i in range(3)]
+    normals = torch.zeros_like(vertices)
+    if weighting_scheme == "max":
+        for i in range(3):
+            angle, e1, e2, side_a, side_b = _corner_angles(v, i)
+            if i == 0:
+                n = vm.normalize(vm.cross(side_a, side_b))
+            e1e2 = vm.length(e1) * vm.length(e2)
+            contrib = torch.where(
+                (e1e2 > 0)[..., None],
+                n * vm.safe_div(torch.sin(angle), e1e2)[..., None], 0.0)
+            normals = normals.index_add(0, indices[:, i], contrib)
+        ok = vm.length_squared(normals) > 0
+        return torch.where(ok[..., None], vm.normalize(normals),
+                           torch.tensor([0.0, 0.0, 1.0], dtype=vertices.dtype,
+                                        device=vertices.device))
+    if weighting_scheme == "cotangent":
+        max_normal = compute_vertex_normal(vertices, indices, "max")
+        for i in range(3):
+            angle = _corner_angles(v, i)[0]
+            contrib = (v[(i + 2) % 3] - v[(i + 1) % 3]) * (
+                1.0 / torch.tan(angle))[..., None]
+            normals = normals.index_add(0, indices[:, (i + 1) % 3], -contrib)
+            normals = normals.index_add(0, indices[:, (i + 2) % 3], contrib)
+        ok = vm.length_squared(normals) > 1e-10
+        return torch.where(ok[..., None], vm.normalize(normals), max_normal)
+    raise ValueError(f"unknown weighting scheme {weighting_scheme}")
+
+
+def bound_vertices(vertices, indices=None):
+    """Bounding sphere (centroid, max distance to it) of the vertices."""
+    center = torch.mean(vertices, dim=0)
+    return center, torch.max(vm.length(vertices - center))
+
+
+def smooth(vertices, indices, lmd: float = 0.5):
+    """One step of uniform Laplacian smoothing (pyredner/shape.py:160-276):
+    each vertex moves lmd of the way to the mean of its face neighbours
+    (counted once per face corner pair)."""
+    indices = torch.as_tensor(indices, dtype=torch.int64,
+                              device=vertices.device)
+    acc = torch.zeros_like(vertices)
+    cnt = torch.zeros((vertices.shape[0],), dtype=vertices.dtype,
+                      device=vertices.device)
+    ones = torch.ones((indices.shape[0],), dtype=vertices.dtype,
+                      device=vertices.device)
+    for i in range(3):
+        for j in range(3):
+            if i != j:
+                acc = acc.index_add(0, indices[:, i], vertices[indices[:, j]])
+                cnt = cnt.index_add(0, indices[:, i], ones)
+    mean = acc / torch.clamp_min(cnt, 1.0)[..., None]
+    return vertices + lmd * (mean - vertices)
+
+
+def compute_uvs(shape: Shape, normal_cos_threshold: float = 0.75) -> Shape:
+    """The shape with an automatic UV atlas from the native helper
+    (pyredner.compute_uvs, pyredner/shape.py:279-326)."""
+    import dataclasses
+
+    from redner_tpu_torch import meshops
+
+    uvs, uv_idx = meshops.compute_uvs(
+        shape.vertices.detach().cpu().numpy(),
+        shape.indices.detach().cpu().numpy(), normal_cos_threshold)
+    dev = shape.vertices.device
+    return dataclasses.replace(
+        shape,
+        uvs=torch.as_tensor(uvs, dtype=shape.vertices.dtype, device=dev),
+        uv_indices=torch.as_tensor(uv_idx, dtype=torch.int64, device=dev))

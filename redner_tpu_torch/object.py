@@ -25,6 +25,7 @@ class Object:
         light_intensity=None,
         light_two_sided: bool = False,
         directly_visible: bool = True,
+        weld_ids=None,
     ):
         self.vertices = vertices
         self.indices = indices
@@ -37,6 +38,7 @@ class Object:
         self.light_intensity = light_intensity
         self.light_two_sided = light_two_sided
         self.directly_visible = directly_visible
+        self.weld_ids = weld_ids
 
 
 def scene_from_objects(camera, objects, envmap=None):
@@ -77,6 +79,7 @@ def scene_from_objects(camera, objects, envmap=None):
                 colors=obj.colors,
                 material_id=mat_ids[key],
                 light_id=light_id,
+                weld_ids=obj.weld_ids,
                 device=dev,
             )
         )

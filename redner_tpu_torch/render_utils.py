@@ -106,7 +106,8 @@ def _area_downsample(img, aa: int):
 
 
 def _upscaled_camera(camera, aa: int):
-    """The camera at aa times the resolution (and viewport)."""
+    """The camera at aa times the resolution (and viewport), its intrinsics
+    and distortion kept."""
     if aa <= 1:
         return camera
     h, w = camera.resolution

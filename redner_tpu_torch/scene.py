@@ -117,6 +117,10 @@ class FlatScene:
     # (ops.intersect_cuda.CoeffLayout), built once per flatten.
     layout: Optional[object] = None
 
+    # (V,) int64 canonical vertex ids from load-time eps welds (edge
+    # keying only); None when no shape carries one.
+    weld_ids: Optional[torch.Tensor] = None
+
     @property
     def num_triangles(self):
         return self.faces.shape[0]
@@ -158,6 +162,14 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         [torch.full((s.num_triangles,), s.material_id, **ikw) for s in shapes])
     face_light_id = torch.cat(
         [torch.full((s.num_triangles,), s.light_id, **ikw) for s in shapes])
+    # Load-time weld maps composed into global vertex ids; identity for
+    # shapes without one.
+    weld_ids = None
+    if any(s.weld_ids is not None for s in shapes):
+        weld_ids = torch.cat([
+            (s.weld_ids if s.weld_ids is not None
+             else torch.arange(s.num_vertices, **ikw)) + off
+            for s, off in zip(shapes, v_off)])
 
     # Per-corner attributes
     uv_parts, n_parts, hn_parts, c_parts = [], [], [], []
@@ -342,6 +354,7 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
         num_materials=len(materials),
         num_area_lights=L,
         has_envmap=penv is not None,
+        weld_ids=weld_ids,
     )
     from redner_tpu_torch.ops.intersect_cuda import coeff_layout_build
 
@@ -455,8 +468,10 @@ def _map_float_tensors(obj, fn):
 
 
 def scene_leaves(scene: Scene) -> list:
-    """The scene's float tensors, in a fixed order: camera position,
-    look-at, up and fov; each shape's vertices (and uvs, normals, colors);
+    """The scene's float tensors, in a fixed order: the camera's
+    position, look-at and up (look-at mode) or cam_to_world, its
+    intrinsic_mat and distortion_params; each shape's vertices (and uvs,
+    normals, colors);
     each material's texels and uv scales (diffuse, specular, roughness,
     generic texture, normal map); each light's intensity; the envmap's
     texels, uv scale, env_to_world and world_to_env."""

@@ -7,6 +7,7 @@ not installed; there, skip the repository's conftest (which pins JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -365,3 +366,79 @@ def test_sobol_draw_matches_cpu(dev):
         b = sampler.draw(sampler.SamplerType.sobol, 2**32 - 1,
                          torch.as_tensor(pix), torch.as_tensor(sid), dim, n)
         assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def _fisheye_scene(dev):
+    """_scene under a fisheye camera from the same cam_to_world."""
+    from redner_tpu_torch.camera import camera_to_world
+
+    scene = _scene(dev, res=(16, 16))
+    cam = rtt.make_camera(
+        cam_to_world=camera_to_world(scene.camera).detach().clone(),
+        camera_type=rtt.CameraType.fisheye, resolution=(16, 16), device=dev)
+    return dataclasses.replace(scene, camera=cam)
+
+
+@pytest.mark.cuda
+def test_fisheye_gradient_matches_plain(dev):
+    """The fisheye camera's edge-sampled gradient (the film arc, dead lanes
+    outside the image circle) through the kernels equals the one through
+    the plain queries, cam_to_world included."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    w = np.random.default_rng(5).uniform(0.5, 1.5, (16, 16, 3)).astype(
+        np.float32)
+
+    def grads(engine):
+        scene = _fisheye_scene(dev)
+        leaves = [scene.shapes[0].vertices, scene.camera.cam_to_world]
+        for x in leaves:
+            x.requires_grad_(True)
+        img = rtt.render(scene, opts, seed=5, engine=engine)
+        g = torch.autograd.grad(
+            torch.sum(img * torch.as_tensor(w, device=dev)), leaves)
+        return img.detach(), [x.cpu().numpy() for x in g]
+
+    ic.reset_launch_counts()
+    img, g = grads(None)
+    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    img_p, g_p = grads("plain")
+    assert torch.equal(img, img_p)
+    for a, b in zip(g, g_p):
+        assert np.isfinite(a).all() and np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-6 * np.abs(b).max())
+
+
+@pytest.mark.cuda
+def test_meshops_builds_into_the_port(dev):
+    from redner_tpu_torch import meshops
+
+    path = meshops.build()
+    assert path.parent == meshops.BUILD_DIR and path.exists()
+    v = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 0, 1e-7]],
+                   np.float32)
+    np.testing.assert_array_equal(meshops.weld_ids(v, 1e-5), [0, 1, 2, 1])
+
+
+@pytest.mark.cuda
+def test_loaded_obj_on_card_equals_cpu_load(dev, tmp_path):
+    """An OBJ with uvs, normals and split vertices loads onto the card
+    with the same arrays and weld map as onto the CPU."""
+    v, f, uv, n = (x.numpy() for x in rtt.generate_sphere(6, 10,
+                                                          device="cpu"))
+    path = tmp_path / "s.obj"
+    with open(path, "w") as out:
+        for c in f.reshape(-1):
+            out.write(f"v {v[c][0]:.6g} {v[c][1]:.6g} {v[c][2]:.6g}\n"
+                      f"vt {uv[c][0]:.6g} {uv[c][1]:.6g}\n"
+                      f"vn {n[c][0]:.6g} {n[c][1]:.6g} {n[c][2]:.6g}\n")
+        for k in range(f.shape[0]):
+            a = 3 * k + 1
+            out.write(f"f {a}/{a}/{a} {a + 1}/{a + 1}/{a + 1} "
+                      f"{a + 2}/{a + 2}/{a + 2}\n")
+    on_card = rtt.load_obj(str(path), return_objects=True, device=dev)[0]
+    on_cpu = rtt.load_obj(str(path), return_objects=True, device="cpu")[0]
+    assert on_card.weld_ids is not None
+    for name in ("vertices", "indices", "uvs", "normals", "weld_ids"):
+        a, b = getattr(on_card, name), getattr(on_cpu, name)
+        assert a.is_cuda and torch.equal(a.cpu(), b), name

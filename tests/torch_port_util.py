@@ -1,8 +1,6 @@
 """Helpers that carry redner_tpu scenes and rays across to redner_tpu_torch
 for the port's comparison tests (the port itself never imports JAX)."""
 
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -32,19 +30,29 @@ _STACKS = ("diffuse_reflectance", "specular_reflectance", "roughness",
 
 def scene_arrays(scene) -> dict:
     """The nested dict of numpy arrays that redner_tpu_torch.scene_from_arrays
-    takes, filled from a redner_tpu Scene (perspective look-at camera,
-    constant or image-texture materials, generic textures and normal maps,
+    takes, filled from a redner_tpu Scene (any camera, constant or
+    image-texture materials, generic textures and normal maps, weld maps,
     area lights, an envmap)."""
     cam = scene.camera
-    assert cam.use_look_at and not cam.has_distortion
-    fx = float(np.asarray(cam.intrinsic_mat)[0, 0])
+    camera = {
+        "intrinsic_mat": _arr(cam.intrinsic_mat),
+        "distortion_params": (_arr(cam.distortion_params)
+                              if cam.has_distortion else None),
+        "camera_type": cam.camera_type.name, "resolution": cam.resolution,
+        "viewport": cam.viewport, "clip_near": cam.clip_near,
+    }
+    if cam.use_look_at:
+        camera.update(position=_arr(cam.position), look_at=_arr(cam.look_at),
+                      up=_arr(cam.up))
+    else:
+        camera["cam_to_world"] = _arr(cam.cam_to_world)
     shapes = [
         {
             "vertices": _arr(s.vertices), "indices": _arr(s.indices),
             "uvs": _arr(s.uvs), "normals": _arr(s.normals),
             "uv_indices": _arr(s.uv_indices),
             "normal_indices": _arr(s.normal_indices),
-            "colors": _arr(s.colors),
+            "colors": _arr(s.colors), "weld_ids": _arr(s.weld_ids),
             "material_id": s.material_id, "light_id": s.light_id,
         }
         for s in scene.shapes
@@ -67,19 +75,15 @@ def scene_arrays(scene) -> dict:
     ]
     env = scene.envmap
     envmap = None if env is None else {
-        "values": _arr(env.values.texels), "uv_scale": _arr(env.values.uv_scale),
+        "values": _arr(env.values.texels),
+        "uv_scale": _arr(env.values.uv_scale),
         "env_to_world": _arr(env.env_to_world),
         "world_to_env": _arr(env.world_to_env),
         "directly_visible": env.directly_visible,
     }
     return {
         "envmap": envmap,
-        "camera": {
-            "position": _arr(cam.position), "look_at": _arr(cam.look_at),
-            "up": _arr(cam.up),
-            "fov": math.degrees(2.0 * math.atan(1.0 / fx)),
-            "resolution": cam.resolution,
-        },
+        "camera": camera,
         "shapes": shapes,
         "materials": materials,
         "area_lights": lights,
