@@ -102,8 +102,33 @@ Phases (any failure exits non-zero):
              fisheye, one call for the others); the fisheye's (dead lanes
              outside the image circle, checked as misses) and the
              panorama's camera-ray launches timed against their bounds;
- 11. report  one `kernels` JSON line, the nvidia-smi line, and the final
+ 11. frontend the slice scene built through redner_tpu_torch.frontend (the
+             pyredner-style classes: Camera, Object, Material,
+             generate_quad_light, Scene(objects=...)) at 256x256, 4 spp, 1
+             bounce, seed 11: pyredner.render against rtt.render on
+             make_slice_scene (pixels, and the gradient w.r.t. the sphere's
+             vertices and diffuse, the light intensity and the camera
+             position), the launches of one forward and one gradient, five
+             Adam steps of tutorial 01's inverse-rendering loop on the
+             diffuse (the loss must fall), the front end's deferred and
+             G-buffer renders of the aov scene against the functional ones,
+             and the front end's remat=True gradient against its live one;
+             then remat on the slice's gradient against the live gradient:
+             launches, fwd+bwd (median of 3, interleaved with the live
+             one), peak memory and a profile of each (CUDA kernels, device
+             busy); isect_replay_max_mb=256, which the port accepts and
+             which changes nothing: the live launches and gradient;
+ 12. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
+
+    python3 chip_smoke.py --memory
+
+runs only the memory measurement (phase_memory): the peak device memory of
+the slice's gradient with and without remat, at 256x256 x 4 spp and at
+1024x1024 x 16 and x 32 spp, with the secondary-edge candidate draw in
+runs of lanes (edge.CANDIDATE_CHUNK) and, but at 32 spp, in one run; and
+what the allocations live at the peak are, by the line of the port that
+made them.
 
 It imports nothing of JAX or redner_tpu.
 """
@@ -120,6 +145,7 @@ import numpy as np
 import torch
 
 import redner_tpu_torch as rtt
+import redner_tpu_torch.frontend as pyredner
 from redner_tpu_torch import accel
 from redner_tpu_torch import sampler as sampler_mod
 from redner_tpu_torch.camera import sample_primary_rays
@@ -1739,6 +1765,425 @@ def phase_cameras(scene, scene_cpu, opts, smi_line):
     return rows
 
 
+# ----------------------------------------------------------------------
+# The pyredner-style front end, remat and the replay option
+# ----------------------------------------------------------------------
+
+FRONT_PIXEL_MIN = 0.9999  # front end vs functional: pixels at rtol 1e-6
+FRONT_L2_MAX = 1e-5  # gradients: float atomics of the index backward only
+ADAM_STEPS = 5
+
+
+def frontend_slice_scene(res=(256, 256), theta=64, phi=128, textures=None):
+    """make_slice_scene through redner_tpu_torch.frontend on the default
+    device.  textures: envtex_arrays(...) for make_envtex_scene's sphere
+    material, floor colours and envmap (the aov scene when it holds a
+    generic texture)."""
+    cam = pyredner.Camera(position=[0.0, 1.0, -4.5], look_at=[0.0, -0.2, 0.0],
+                          up=[0.0, 1.0, 0.0], fov=[45.0], resolution=res)
+    v, f, uv, n = pyredner.generate_sphere(theta, phi)
+    envmap = floor_colors = None
+    if textures is None:
+        sphere_mat = pyredner.Material(diffuse_reflectance=[0.5, 0.5, 0.5],
+                                       specular_reflectance=[0.2, 0.2, 0.2],
+                                       roughness=[0.05])
+    else:
+        sphere_mat = pyredner.Material(
+            diffuse_reflectance=textures["diffuse"],
+            specular_reflectance=[0.2, 0.2, 0.2],
+            roughness=textures["roughness"],
+            generic_texture=textures["generic"],
+            normal_map=textures["normal_map"])
+        envmap = pyredner.EnvironmentMap(textures["envmap"])
+        if textures["generic"] is not None:
+            floor_colors = [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2],
+                            [0.2, 0.2, 0.9], [0.9, 0.9, 0.2]]
+    floor_v = [[-4.0, -1.0, -4.0], [4.0, -1.0, -4.0], [-4.0, -1.0, 4.0],
+               [4.0, -1.0, 4.0]]
+    objs = [
+        pyredner.Object(vertices=v, indices=f, uvs=uv, normals=n,
+                        material=sphere_mat),
+        pyredner.Object(vertices=floor_v, indices=[[0, 2, 1], [1, 2, 3]],
+                        colors=floor_colors,
+                        material=pyredner.Material(
+                            diffuse_reflectance=[0.4, 0.4, 0.4])),
+        pyredner.generate_quad_light(position=[0.0, 4.0, -1.0],
+                                     look_at=[0.0, 0.0, 0.0], size=[2.0, 2.0],
+                                     intensity=[20.0, 20.0, 20.0]),
+    ]
+    return pyredner.Scene(camera=cam, objects=objs, envmap=envmap)
+
+
+def frontend_gradient(fe, **options):
+    """pyredner.render(fe, **options).sum() differentiated w.r.t.
+    GRAD_LEAVES (the front end's tensors) -> (image, gradients)."""
+    leaves = [fe.shapes[0].vertices, fe.area_lights[0].intensity,
+              fe.materials[0].diffuse_reflectance.texels, fe.camera.position]
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        img = pyredner.render(fe, num_samples=4, max_bounces=1, seed=SEED,
+                              **options)
+        grads = torch.autograd.grad(img.sum(), leaves)
+        return img.detach(), [g.detach() for g in grads]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def pixel_share(a, b, rtol):
+    """Share of pixels whose every channel agrees at rtol (atol 0)."""
+    return float(torch.isclose(a, b, rtol=rtol, atol=0.0).all(-1).float()
+                 .mean())
+
+
+def counted(run):
+    """run() with the launch counts zeroed just before and read just
+    after -> (its result, {kernel: launches})."""
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(ic.LAUNCHES)
+
+
+def _check_launches(label, got, want):
+    print(f"[frontend] {label} launches {got}; predicted "
+          f"{want[0]} closest hit + {want[1]} any hit", flush=True)
+    _check(all(v > 0 for v in got.values()),
+           f"{label}: a kernel did not launch: {got}")
+    _check((got["closest_hit"], got["any_hit"]) == want,
+           f"{label}: launches {got}, want {want}")
+
+
+def phase_frontend(scene, opts, smi_line):
+    """The front end on the slice, its inverse-rendering loop and its
+    utilities; then remat on the functional slice gradient, and the
+    isect_replay_max_mb option.
+    Returns {"frontend" | "replay" | "remat" | "live": row}."""
+    lap = _Lap(time.perf_counter())
+    dev = scene.camera.device
+    fe = frontend_slice_scene()
+    _check(rtt.flatten_scene(fe._build()).num_triangles
+           == rtt.flatten_scene(scene).num_triangles
+           and fe.camera.position.device == dev,
+           "the front-end slice differs from make_slice_scene")
+    rows = {}
+
+    # The front end against the functional render, and its launches.
+    frontend_gradient(fe)  # warm-up
+    with torch.no_grad():
+        img, fwd = counted(lambda: pyredner.render(
+            fe, num_samples=4, max_bounces=1, seed=SEED))
+        ref = rtt.render(scene, opts, seed=SEED)
+    _check_launches("front-end forward", fwd, (8, 4))
+    (fimg, fgrads), grad_l = counted(lambda: frontend_gradient(fe))
+    _check_launches("front-end gradient", grad_l, (32, 16))
+    share = pixel_share(img, ref, 1e-6)
+    print(f"[frontend] pyredner.render vs rtt.render 256x256: {share:.6f} of "
+          f"pixels at rtol 1e-6, max |diff| "
+          f"{float((img - ref).abs().max()):.3e}; image on {img.device}",
+          flush=True)
+    _check(img.device == dev and share >= FRONT_PIXEL_MIN,
+           f"front-end image: {share} of pixels at rtol 1e-6")
+    _check(torch.equal(fimg, img), "the front end's forward differs from "
+           "its gradient's forward")
+    grads = gradient(scene, opts)
+    for name, a, b in zip(GRAD_LEAVES, fgrads, grads):
+        r = rel_l2(a, b)
+        print(f"[frontend] d/d {name}: relative L2 {r:.3e} against "
+              f"rtt.render's", flush=True)
+        _check(bool(torch.isfinite(a).all()) and r <= FRONT_L2_MAX,
+               f"front-end gradient {name}: relative L2 {r}")
+    lap("frontend vs functional")
+
+    # Tutorial 01's loop: Adam on the sphere's diffuse toward a target
+    # rendered with another diffuse, the same seed every step.
+    target_fe = frontend_slice_scene()
+    target_fe.materials[0].diffuse_reflectance.texels = torch.tensor(
+        [0.8, 0.3, 0.2], device=dev)
+    with torch.no_grad():
+        target = pyredner.render(target_fe, num_samples=4, max_bounces=1,
+                                 seed=SEED)
+    diffuse = fe.materials[0].diffuse_reflectance.texels.clone()
+    diffuse.requires_grad_(True)
+    fe.materials[0].diffuse_reflectance.texels = diffuse
+    adam = torch.optim.Adam([diffuse], lr=0.05)
+    losses, step_ms = [], []
+    for step in range(ADAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adam.zero_grad()
+        loss = ((pyredner.render(fe, num_samples=4, max_bounces=1, seed=SEED)
+                 - target) ** 2).sum()
+        loss.backward()
+        adam.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        _check(bool(torch.isfinite(diffuse.grad).all()),
+               f"Adam step {step}: non-finite gradient")
+        print(f"[frontend] Adam step {step}: loss {losses[-1]:.6g}, diffuse "
+              f"{[round(x, 4) for x in diffuse.detach().tolist()]}, "
+              f"{step_ms[-1]:.3f} ms ({smi_line})", flush=True)
+    _check(losses[-1] < losses[0], f"the Adam loss did not fall: {losses}")
+    fe.materials[0].diffuse_reflectance.texels = torch.tensor(
+        [0.5, 0.5, 0.5], device=dev)
+    lap("frontend Adam")
+
+    # The front end's utilities on the aov scene.
+    aov = make_envtex_scene(device=dev, generic=16)
+    fe_aov = frontend_slice_scene(textures=envtex_arrays(generic=16))
+    point = torch.tensor(POINT_LIGHT, device=dev)
+    with torch.no_grad():
+        pairs = {
+            "g_buffer": (
+                pyredner.render_g_buffer(fe_aov, AOV_CHANNELS, seed=SEED),
+                rtt.render_g_buffer(aov, AOV_CHANNELS, seed=SEED)),
+            "deferred": (
+                pyredner.render_deferred(fe_aov, deferred_lights(point),
+                                         alpha=True, aa_samples=2,
+                                         seed=SEED),
+                rtt.render_deferred(aov, deferred_lights(point), alpha=True,
+                                    aa_samples=2, seed=SEED)),
+        }
+    for name, (a, b) in pairs.items():
+        share = pixel_share(a, b, 1e-6)
+        print(f"[frontend] aov {name} {tuple(a.shape)}: {share:.6f} of pixels "
+              f"at rtol 1e-6 against the functional render", flush=True)
+        _check(share >= FRONT_PIXEL_MIN, f"front-end {name}: {share}")
+    del aov, fe_aov, pairs
+    lap("frontend utilities")
+
+    # remat=True through pyredner.render reaches RenderOptions.
+    remat_fe, remat_fe_l = counted(lambda: frontend_gradient(fe, remat=True))
+    _check_launches("front-end remat gradient", remat_fe_l, (48, 24))
+    for name, a, b in zip(GRAD_LEAVES, remat_fe[1], fgrads):
+        r = rel_l2(a, b)
+        print(f"[frontend] front-end remat d/d {name}: relative L2 {r:.3e} "
+              f"against the front end's live gradient", flush=True)
+        _check(bool(torch.isfinite(a).all()) and r <= FRONT_L2_MAX,
+               f"front-end remat gradient {name}: relative L2 {r}")
+
+    # isect_replay_max_mb is accepted and changes nothing.
+    replay_o = rtt.RenderOptions(num_samples=4, max_bounces=1,
+                                 isect_replay_max_mb=256.0)
+    with torch.no_grad():
+        _, replay_fwd = counted(lambda: rtt.render(scene, replay_o,
+                                                   seed=SEED))
+    _check_launches("isect_replay_max_mb=256 forward", replay_fwd, (8, 4))
+    replay_g, replay_l = counted(lambda: gradient(scene, replay_o))
+    _check_launches("isect_replay_max_mb=256 gradient", replay_l, (32, 16))
+    for name, a, b in zip(GRAD_LEAVES, replay_g, grads):
+        r = rel_l2(a, b)
+        print(f"[frontend] isect_replay_max_mb=256 d/d {name}: relative L2 "
+              f"{r:.3e} against the live gradient", flush=True)
+        _check(r <= FRONT_L2_MAX,
+               f"isect_replay_max_mb=256 gradient {name}: relative L2 {r}")
+    rows["replay"] = {"launches": replay_fwd,
+                      "launches_per_gradient": replay_l}
+    lap("frontend remat and the replay option")
+
+    # Remat on the functional slice gradient.
+    modes = {
+        "live": opts,
+        "remat": rtt.RenderOptions(num_samples=4, max_bounces=1, remat=True),
+    }
+    predicted = {"live": (32, 16), "remat": (48, 24)}
+    for mode, o in modes.items():
+        gradient(scene, o)  # warm-up
+        with torch.no_grad():
+            _, fwd_m = counted(lambda: rtt.render(scene, o, seed=SEED))
+        _check_launches(f"{mode} forward", fwd_m, (8, 4))
+        g, launches = counted(lambda: gradient(scene, o))
+        _check_launches(f"{mode} gradient", launches, predicted[mode])
+        torch.cuda.reset_peak_memory_stats()
+        gradient(scene, o)
+        torch.cuda.synchronize()
+        rows[mode] = {"launches": fwd_m, "launches_per_gradient": launches,
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        for name, a, b in zip(GRAD_LEAVES, g, grads):
+            r = rel_l2(a, b)
+            print(f"[frontend] {mode} d/d {name}: relative L2 {r:.3e} "
+                  f"against the live gradient", flush=True)
+            _check(bool(torch.isfinite(a).all()) and r <= FRONT_L2_MAX,
+                   f"{mode} gradient {name}: relative L2 {r}")
+    walls = {mode: [] for mode in modes}
+    for _ in range(3):  # interleaved: live, remat, live, ...
+        for mode, o in modes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gradient(scene, o)
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+    for mode in modes:
+        rows[mode]["gradient_ms"] = statistics.median(walls[mode])
+        print(f"[frontend] {mode} fwd+bwd 256x256 4spp 1 bounce: median "
+              f"{rows[mode]['gradient_ms']:.3f} ms of 3 (all: "
+              f"{', '.join(f'{w:.2f}' for w in walls[mode])}); peak memory "
+              f"{rows[mode]['peak_mib']:.1f} MiB; {smi_line}", flush=True)
+    for mode, o in modes.items():  # CUDA kernels and device busy: steadier
+        profile_run(f"one {mode} gradient evaluation ({smi_line})",
+                    lambda: gradient(scene, o), top=4)
+    lap("remat")
+
+    torch.cuda.reset_peak_memory_stats()
+    fe_ms, fe_walls = _wall_ms(lambda: frontend_gradient(fe))
+    rows["frontend"] = {
+        "launches": fwd, "launches_per_gradient": grad_l,
+        "gradient_ms": fe_ms,
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "adam_step_ms": step_ms, "adam_losses": losses}
+    print(f"[frontend] front-end fwd+bwd: median {fe_ms:.3f} ms of 3 (all: "
+          f"{', '.join(f'{w:.2f}' for w in fe_walls)}); peak memory "
+          f"{rows['frontend']['peak_mib']:.1f} MiB; {smi_line}", flush=True)
+    return rows
+
+
+# ----------------------------------------------------------------------
+# Peak device memory of the gradient, with and without remat (--memory)
+# ----------------------------------------------------------------------
+
+MEMORY_CELLS = (((256, 256), 4), ((1024, 1024), 16), ((1024, 1024), 32))
+ONE_RUN = 1 << 62  # edge.CANDIDATE_CHUNK that keeps every lane in one run
+
+
+def _record_history(on):
+    """torch.cuda.memory._record_memory_history with python stacks, or
+    False where this torch does not take these arguments."""
+    try:
+        if on:
+            torch.cuda.memory._record_memory_history(
+                enabled="all", context="alloc", stacks="python",
+                max_entries=4_000_000)
+        else:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        return True
+    except (TypeError, RuntimeError) as e:
+        print(f"[memory] allocation history not measured: {e}", flush=True)
+        return False
+
+
+def _peak_sites(baseline, top=10):
+    """Replays the recorded allocation trace to its peak -> (peak bytes,
+    [(bytes, count, site)]) of the blocks live at the peak, by the
+    innermost line of the port (or of this script) that allocated them,
+    with the port's functions above it."""
+    trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    live, cur, best, at_best = {}, baseline, baseline, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > best:
+                best, at_best = cur, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+    sites = {}
+    for ev in at_best.values():
+        ours = [f for f in ev.get("frames", ())
+                if "redner_tpu_torch" in f["filename"]
+                or f["filename"].endswith("chip_smoke.py")]
+        site = " < ".join(
+            f"{f['filename'].split('redner_tpu_torch/')[-1].split('/')[-1]}"
+            f":{f['line']} {f['name']}" for f in ours[:3]) or "(no port frame)"
+        n, b = sites.get(site, (0, 0))
+        sites[site] = (n + 1, b + ev["size"])
+    rows = sorted(((b, n, site) for site, (n, b) in sites.items()),
+                  reverse=True)[:top]
+    return best, rows
+
+
+def phase_memory(smi_line):
+    """The slice's fwd+bwd at MEMORY_CELLS, live and remat, with the
+    secondary-edge candidate draw in runs (edge.CANDIDATE_CHUNK) and in one
+    run: peak device memory (max_memory_allocated over one gradient, after
+    empty_cache) and wall time; a cell that runs out of memory prints OOM.
+    Then, at 256x256 and at 1024x1024 x 16 spp, the allocations live at the
+    peak by the line that made them (recorded allocation history)."""
+    from redner_tpu_torch import edge as tedge
+
+    chunk = tedge.CANDIDATE_CHUNK
+    gradient(make_slice_scene(res=(64, 64), device="cuda"),
+             rtt.RenderOptions(num_samples=4, max_bounces=1))  # warm-up
+    rows = []
+    for res, spp in MEMORY_CELLS:
+        scene = make_slice_scene(res=res, device="cuda")
+        for runs in ("runs",) if spp == 32 else ("runs", "one run"):
+            tedge.CANDIDATE_CHUNK = chunk if runs == "runs" else ONE_RUN
+            for remat in (False, True):
+                o = rtt.RenderOptions(num_samples=spp, max_bounces=1,
+                                      remat=remat)
+                label = (f"{res[0]}x{res[1]} {spp}spp "
+                         f"{'remat' if remat else 'live'}, candidate draw "
+                         f"in {runs}")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                try:
+                    g = gradient(scene, o)
+                    torch.cuda.synchronize()
+                    ok = all(bool(torch.isfinite(x).all()) for x in g)
+                    _check(ok, f"{label}: non-finite gradient")
+                    peak = torch.cuda.max_memory_allocated() / 2**20
+                    ms = (time.perf_counter() - t0) * 1e3
+                    del g
+                except torch.cuda.OutOfMemoryError:
+                    peak = ms = None
+                torch.cuda.empty_cache()
+                rows.append({"res": list(res), "spp": spp, "remat": remat,
+                             "candidate_runs": runs == "runs",
+                             "peak_mib": peak, "gradient_ms": ms,
+                             "base_mib": base / 2**20})
+                print(f"[memory] {label}: " + (
+                    "OOM" if peak is None else
+                    f"peak {peak:.1f} MiB (scene and earlier tensors "
+                    f"{base / 2**20:.1f} MiB), fwd+bwd {ms:.1f} ms")
+                    + f"; {smi_line}", flush=True)
+        tedge.CANDIDATE_CHUNK = chunk
+        if spp == 32:
+            continue
+        for remat in (False, True):
+            o = rtt.RenderOptions(num_samples=spp, max_bounces=1, remat=remat)
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            if not _record_history(True):
+                break
+            try:
+                gradient(scene, o)
+                torch.cuda.synchronize()
+                peak, sites = _peak_sites(base)
+            finally:
+                _record_history(False)
+            print(f"[memory] {res[0]}x{res[1]} {spp}spp "
+                  f"{'remat' if remat else 'live'}: {peak / 2**20:.1f} MiB "
+                  f"live at the peak of the recorded trace; by site:",
+                  flush=True)
+            for b, n, site in sites:
+                print(f"[memory]   {b / 2**20:10.1f} MiB {n:6d} blocks  "
+                      f"{site}", flush=True)
+        del scene
+    print(json.dumps({"memory": rows}), flush=True)
+    return rows
+
+
+def memory_main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    phase_build()
+    smi_line = phase_device()
+    phase_memory(smi_line)
+    print(smi_line)
+    return 0
+
+
 class _Lap:
     """Prints the seconds each phase took, on the host clock."""
 
@@ -1789,6 +2234,8 @@ def main():
     lap("files")
     cam_rows = phase_cameras(loaded, loaded_cpu, opts, smi_line)
     lap("cameras")
+    fe_rows = phase_frontend(scene, opts, smi_line)
+    lap("frontend")
 
     kernels = []
     for kind, rows in per.items():
@@ -1832,6 +2279,13 @@ def main():
             name: {k: (v[kind] if k.startswith("launches") else v)
                    for k, v in row.items() if k != "camera_batch"}
             for name, row in cam_rows.items()}
+        for mode in ("frontend", "replay", "remat"):
+            kernels[-1][mode] = {
+                k: (v[kind] if k.startswith("launches") else v)
+                for k, v in fe_rows[mode].items()
+                if k not in ("adam_step_ms", "adam_losses")}
+        kernels[-1]["frontend"]["adam_step_ms"] = fe_rows["frontend"][
+            "adam_step_ms"]
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {
                 k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}
@@ -1852,4 +2306,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(memory_main() if sys.argv[1:] == ["--memory"] else main())

@@ -43,6 +43,8 @@ from redner_tpu_torch.ops.intersect import (CHUNK, TILE_N, anyhit_plain,
                                             triangle_coefficients)
 
 SORT_MIN_CHUNKS = 8  # the Morton ray sort pays off above this many chunks
+# Ray x chunk elements per block of the activity mask's slab tests.
+MASK_BLOCK = 1 << 23
 
 # Kernel launches since the last reset_launch_counts(); the plain path on
 # CPU tensors does not count.
@@ -208,7 +210,19 @@ def coeff_layout_build(fs) -> CoeffLayout:
 def _tile_chunk_mask(org, d, tmin, tmax, live, ntile, cl_min, cl_max,
                      tile=TILE_N):
     """(ntile, nchunks) bool: exact per-ray slab tests against the chunk
-    AABBs, OR-reduced over each tile's lanes."""
+    AABBs, OR-reduced over each tile's lanes.  The tests hold (rays,
+    nchunks, 3) tensors, so they run over blocks of whole tiles of about
+    MASK_BLOCK elements: per ray and per tile, the same result as one
+    block."""
+    rows = max(1, MASK_BLOCK // (cl_min.shape[0] * tile)) * tile
+    if org.shape[0] > rows:
+        return torch.cat([
+            _tile_chunk_mask(org[i:i + rows], d[i:i + rows],
+                             tmin[i:i + rows], tmax[i:i + rows],
+                             live[i:i + rows], -(-min(rows, org.shape[0] - i)
+                                                 // tile),
+                             cl_min, cl_max, tile)
+            for i in range(0, org.shape[0], rows)])
     small = torch.where(d >= 0, 1e-20, -1e-20).to(d.dtype)
     safe_d = torch.where(live[:, None] & (torch.abs(d) > 1e-20), d, small)
     inv_d = 1.0 / safe_d

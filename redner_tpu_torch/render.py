@@ -17,8 +17,13 @@ runs that fused pass over the sample loop for render_grad.render.
 (`_accumulate_primary`) and runs the bounce loop only when the radiance
 channel is asked for.
 
-Not ported yet (they raise): intersection replay, remat, the batched
-shadow sweep (split_shadow_sweep=False) and sharding.
+Remat (`RenderOptions.remat`) wraps each pass of the sample loop in
+torch.utils.checkpoint when grad is enabled.  `isect_replay_max_mb` is
+accepted and changes nothing: the backward re-runs its ray queries (see
+render_grad).
+
+Not ported yet (they raise): the batched shadow sweep
+(split_shadow_sweep=False) and sharding.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import redner_tpu_torch.sampler as sampler_mod
 from redner_tpu_torch import accel
@@ -636,9 +642,6 @@ def swizzle_order(vh: int, vw: int):
 
 
 def _check_supported(options: RenderOptions):
-    if options.remat:
-        raise NotImplementedError(
-            "redner_tpu_torch: remat is not ported yet (ROADMAP queue A)")
     if not options.split_shadow_sweep:
         raise NotImplementedError(
             "redner_tpu_torch: split_shadow_sweep=False (shadow and "
@@ -754,7 +757,13 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
 
     secondary_d_radiance: (vh, vw, 3) radiance adjoint.  When given, the
     loop also accumulates the secondary-edge surrogate fused into the same
-    wavefront, and the return value is (image, surrogate scalar)."""
+    wavefront, and the return value is (image, surrogate scalar).
+
+    options.remat with grad enabled checkpoints each pass (non-reentrant,
+    so torch.autograd.grad works through it): its residuals are dropped and
+    the pass re-runs in the backward, ray queries included; the RNG is
+    stateless and both kernels are deterministic, so the re-run issues the
+    same rays."""
     _check_supported(options)
     fs = flatten_scene(scene)
     camera = scene.camera
@@ -785,21 +794,29 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
         edge_table = build_edge_table(fs)
         d_flat = secondary_d_radiance.detach().reshape(-1, 3)
         d_lane = d_flat[order].repeat(K, 1)  # swizzled lanes, K samples
+
+    def one_pass(sample_vec, d_pixel):
+        return render_sample(
+            fs, camera, options, seed, sample_vec, pixel_order=order_t,
+            engine=engine, secondary_d_pixel=d_pixel,
+            secondary_edge_table=edge_table)
+
+    remat = options.remat and torch.is_grad_enabled()
     for pass_id in range(npass):
         sample_ids = pass_id * K + sub
         w = (sample_ids < spp).to(acc.dtype)  # ragged-tail sample mask
-        if d_lane is None:
-            contrib = render_sample(
-                fs, camera, options, seed, sample_ids.repeat_interleave(n),
-                pixel_order=order_t, engine=engine,
-            )
+        d_pixel = (None if d_lane is None
+                   else d_lane * w.repeat_interleave(n)[:, None])
+        args = (sample_ids.repeat_interleave(n), d_pixel)
+        if remat:
+            out = checkpoint(one_pass, *args, use_reentrant=False,
+                             preserve_rng_state=False)
         else:
-            contrib, surr = render_sample(
-                fs, camera, options, seed, sample_ids.repeat_interleave(n),
-                pixel_order=order_t, engine=engine,
-                secondary_d_pixel=d_lane * w.repeat_interleave(n)[:, None],
-                secondary_edge_table=edge_table,
-            )
+            out = one_pass(*args)
+        if d_lane is None:
+            contrib = out
+        else:
+            contrib, surr = out
             surr_total = surr_total + surr
         acc = acc + torch.sum(
             contrib.reshape(K, n, ci.num_total_dimensions) * w[:, None, None],

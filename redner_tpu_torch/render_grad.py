@@ -14,9 +14,16 @@ The backward re-renders with the forward's RNG stream (correlated replay,
 pyredner/render_pytorch.py:10-29); set_use_correlated_random_number(False)
 switches to seed + 1.
 
-Not ported yet: intersection replay (isect_replay_max_mb > 0 raises;
-ROADMAP item 17) and the JAX version's pixel sharding (item 18; there is
-no pixel_sharding argument).
+RenderOptions.remat checkpoints each pass of the re-render
+(render._render_image_impl): the backward then holds one pass's autograd
+residuals at a time.  RenderOptions.isect_replay_max_mb is accepted and
+changes nothing.  The JAX version keeps the forward's ray-query results
+for the re-render; on the card that saved under 1% of a gradient's device
+time and made the gradient no faster (PERF.md), so the re-render here runs
+its ray queries again and gives the same gradient.
+
+Not ported yet: the JAX version's pixel sharding (ROADMAP item 18; there
+is no pixel_sharding argument).
 """
 
 from __future__ import annotations
@@ -112,10 +119,6 @@ def render(scene, options: RenderOptions, seed=0, engine=None):
 
     engine: None = the CUDA kernels on a card scene (plain versions on a
     CPU scene); "plain" forces the plain ray queries."""
-    if options.isect_replay_max_mb > 0:
-        raise NotImplementedError(
-            "redner_tpu_torch: intersection replay (isect_replay_max_mb > 0) "
-            "is not ported yet (ROADMAP queue A item 17)")
     return _RenderFunction.apply(scene, options, int(seed) & 0xFFFFFFFF,
                                  _use_correlated, engine,
                                  *scene_leaves(scene))

@@ -442,3 +442,68 @@ def test_loaded_obj_on_card_equals_cpu_load(dev, tmp_path):
     for name in ("vertices", "indices", "uvs", "normals", "weld_ids"):
         a, b = getattr(on_card, name), getattr(on_cpu, name)
         assert a.is_cuda and torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,launches", [
+    ("replay", {"closest_hit": 8, "any_hit": 4}),
+    ("remat", {"closest_hit": 12, "any_hit": 6}),
+])
+def test_replay_and_remat_gradients_match_live(dev, mode, launches):
+    """isect_replay_max_mb is accepted and changes nothing: the live
+    gradient's 8 + 4 launches (one pass of 512 lanes); remat runs the
+    re-render and the secondary pairs again (+ 4 + 2).  The gradient is the
+    live one up to the order of the gradient's scatter-adds."""
+    w = np.random.default_rng(4).uniform(0.5, 1.5, (16, 16, 3)).astype(
+        np.float32)
+    live = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    opts = (rtt.RenderOptions(num_samples=2, max_bounces=1,
+                              isect_replay_max_mb=64.0) if mode == "replay"
+            else rtt.RenderOptions(num_samples=2, max_bounces=1, remat=True))
+    img, grads = _render_grads(_scene(dev, res=(16, 16)), live, 5, w)
+    ic.reset_launch_counts()
+    img_m, grads_m = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w)
+    assert ic.LAUNCHES == launches
+    assert torch.equal(img_m, img)
+    for g, gm in zip(grads, grads_m):
+        assert np.isfinite(gm).all()
+        np.testing.assert_allclose(gm, g, rtol=1e-4,
+                                   atol=1e-6 * np.abs(g).max())
+
+
+@pytest.mark.cuda
+def test_frontend_renders_on_the_card(dev):
+    """redner_tpu_torch.frontend defaults to the card: its objects land
+    there, its render launches the kernels, and its image and gradients
+    equal the functional render of the same scene."""
+    import redner_tpu_torch.frontend as pyredner
+
+    rtt.set_device(None)
+    cam = pyredner.Camera(position=[0.0, 1.5, -4.0], look_at=[0.0, 0.0, 0.0],
+                          up=[0.0, 1.0, 0.0], fov=[45.0], resolution=(16, 16))
+    v, f, uv, n = pyredner.generate_sphere(36, 72)
+    mat = pyredner.Material(diffuse_reflectance=[0.5, 0.5, 0.5],
+                            specular_reflectance=[0.2, 0.2, 0.2],
+                            roughness=[0.05])
+    light = pyredner.generate_quad_light([0.0, 3.0, -1.0], [0.0, 0.0, 0.0],
+                                         [1.5, 1.5], [20.0, 20.0, 20.0])
+    floor = pyredner.Object(vertices=[[-4.0, -1.0, -4.0], [4.0, -1.0, -4.0],
+                                      [-4.0, -1.0, 4.0], [4.0, -1.0, 4.0]],
+                            indices=[[0, 2, 1], [1, 2, 3]], material=mat)
+    scene = pyredner.Scene(camera=cam, objects=[
+        pyredner.Object(vertices=v, indices=f, uvs=uv, normals=n,
+                        material=mat), floor, light])
+    assert scene.shapes[0].vertices.is_cuda
+    verts = scene.shapes[0].vertices.requires_grad_(True)
+    ic.reset_launch_counts()
+    img = pyredner.render(scene, num_samples=2, max_bounces=1, seed=5)
+    img.sum().backward()
+    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    ref_scene = _scene(dev, res=(16, 16))
+    ref_verts = ref_scene.shapes[0].vertices.requires_grad_(True)
+    ref = rtt.render(ref_scene, rtt.RenderOptions(num_samples=2,
+                                                  max_bounces=1), seed=5)
+    ref.sum().backward()
+    assert torch.equal(img.detach(), ref.detach())
+    g, r = verts.grad.cpu().numpy(), ref_verts.grad.cpu().numpy()
+    np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6 * np.abs(r).max())

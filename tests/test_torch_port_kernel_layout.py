@@ -152,6 +152,24 @@ def test_work_list_of_a_ray_batch(sphere, toward):
     assert torch.equal(rb.tile_active, rb.mask.any(dim=1))
 
 
+@pytest.mark.parametrize("tiles", [1, 2])
+def test_mask_in_blocks_equals_one_block(monkeypatch, tiles):
+    """The activity mask's slab tests over blocks of `tiles` tiles
+    (ic.MASK_BLOCK) give the mask of one block over the whole batch, and
+    so the same work list: the card tests' unbalanced batch on the grid
+    plane, whose tiles have different chunks active."""
+    fs = grid_plane("cpu")
+    ray = unbalanced_rays("cpu")
+    one = ic.prepare_rays(fs, ray, presorted=True)
+    monkeypatch.setattr(ic, "MASK_BLOCK",
+                        tiles * plain.TILE_N * fs.layout.nchunks)
+    blocks = ic.prepare_rays(fs, ray, presorted=True)
+    assert one.mask.shape[0] > 2 * tiles
+    assert bool(one.mask.any()) and not bool(one.mask.all())
+    assert torch.equal(blocks.mask, one.mask)
+    assert torch.equal(blocks.pairs, one.pairs)
+
+
 def test_unbalanced_and_tie_batches():
     """The card tests' batches have the work lists they claim, and the
     plain versions give the tie to the lower sorted index."""

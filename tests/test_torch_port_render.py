@@ -99,9 +99,8 @@ def test_continuous_gradients_match_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(remat=True),
     dict(split_shadow_sweep=False),
-], ids=["remat", "batched_shadow_sweep"])
+], ids=["batched_shadow_sweep"])
 def test_unported_options_raise(option):
     tscene = port_scene(single_triangle_scene(res=(4, 4)))
     with pytest.raises(NotImplementedError):

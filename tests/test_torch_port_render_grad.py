@@ -90,9 +90,3 @@ def test_default_device_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         rtt.make_camera(position=[0, 0, -5], look_at=[0, 0, 0], up=[0, 1, 0],
                         fov=45.0, resolution=(4, 4))
-
-
-def test_unported_render_options_raise():
-    ts = port_scene(shadow_scene(res=(4, 4)))
-    with pytest.raises(NotImplementedError):
-        rtt.render(ts, rtt.RenderOptions(isect_replay_max_mb=64.0))

@@ -20,6 +20,26 @@ def two_torch_threads():
     torch.set_num_threads(keep)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the accumulating index backward then sums in a
+    fixed order, so two runs of one gradient agree bit for bit (with two
+    threads they need not)."""
+    keep = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(keep)
+
+
+@pytest.fixture
+def cpu_default_device():
+    """set_device("cpu") for one test, then the default (the CUDA card)
+    again, so no test leaves the process-wide choice behind."""
+    rtt.set_device("cpu")
+    yield
+    rtt.set_device(None)
+
+
 def _arr(x):
     return None if x is None else np.array(x)
 
