@@ -118,7 +118,17 @@ Phases (any failure exits non-zero):
              one), peak memory and a profile of each (CUDA kernels, device
              busy); isect_replay_max_mb=256, which the port accepts and
              which changes nothing: the live launches and gradient;
- 12. report  one `kernels` JSON line, the nvidia-smi line, and the final
+ 12. sharded the slice's gradient (256x256, 4 spp, 1 bounce, both edge
+             samplers) over two ranks spawned on the one card (gloo: NCCL
+             refuses two ranks on one device) and over a one-rank NCCL
+             group, against one process: every pixel within atol 1e-6,
+             each leaf's gradient within relative L2 1e-4, the ranks'
+             gradients equal; five steps of make_train_step on the
+             sphere's diffuse (the loss falls at every step and matches
+             one process within rtol 1e-3); launches per rank (28 + 14 by
+             the code), peak memory per rank, fwd+bwd of one process
+             against the two ranks';
+ 13. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
     python3 chip_smoke.py --memory
@@ -130,6 +140,14 @@ runs of lanes (edge.CANDIDATE_CHUNK) and, but at 32 spp, in one run; and
 what the allocations live at the peak are, by the line of the port that
 made them.
 
+    python3 chip_smoke.py --cards N
+
+runs only the lane split over N cards (phase_cards): the slice's gradient
+at 256x256 x 4 spp and 1024x1024 x 4 spp on N spawned ranks, one card
+each over NCCL, against one process on the first card: pixels, gradients,
+launches and peak memory per rank, fwd+bwd of one process against the
+ranks'.
+
 It imports nothing of JAX or redner_tpu.
 """
 
@@ -139,10 +157,12 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import redner_tpu_torch as rtt
 import redner_tpu_torch.frontend as pyredner
@@ -152,6 +172,10 @@ from redner_tpu_torch.camera import sample_primary_rays
 from redner_tpu_torch.core.types import Ray
 from redner_tpu_torch.ops import intersect as plain
 from redner_tpu_torch.ops import intersect_cuda as ic
+from redner_tpu_torch.parallel.sharding import (make_mesh, make_train_step,
+                                                render_image_sharded,
+                                                render_sharded)
+from redner_tpu_torch.parallel.spawn import run_ranks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -685,15 +709,19 @@ GRAD_RTOL = 1e-4  # kernels vs plain queries: same torch code, index_add order
 GRAD_L2_MAX = 0.05  # card vs CPU: ulp-level picks may flip a few lanes
 
 
-def gradient(scene, opts, engine=None):
-    """d render(scene).sum() / d GRAD_LEAVES, with both edge samplers."""
+def gradient(scene, opts, engine=None, mesh=None):
+    """d render(scene).sum() / d GRAD_LEAVES, with both edge samplers;
+    through render_sharded over `mesh` when one is given."""
     leaves = [scene.shapes[0].vertices, scene.area_lights[0].intensity,
               scene.materials[0].diffuse_reflectance.texels,
               scene.camera.position]
     for x in leaves:
         x.requires_grad_(True)
     try:
-        loss = rtt.render(scene, opts, seed=SEED, engine=engine).sum()
+        if mesh is None:
+            loss = rtt.render(scene, opts, seed=SEED, engine=engine).sum()
+        else:
+            loss = render_sharded(scene, opts, seed=SEED, mesh=mesh).sum()
         return [g.detach() for g in torch.autograd.grad(loss, leaves)]
     finally:
         for x in leaves:
@@ -2045,6 +2073,202 @@ def phase_frontend(scene, opts, smi_line):
 
 
 # ----------------------------------------------------------------------
+# The lane split over ranks: two on the one card ([sharded]), one a card
+# (--cards N)
+# ----------------------------------------------------------------------
+
+SHARD_WORLD = 2
+SHARD_LAUNCHES = (28, 14)  # per rank of two, by the code (closest, any)
+SHARD_IMAGE_ATOL = 1e-6  # sharded vs one process: tests/test_sharding.py
+SHARD_L2_MAX = 1e-4  # sharded vs one process, per leaf
+SLICE_CELL = ((256, 256), 4)  # (resolution, spp) of [sharded]
+CARDS_CELLS = (SLICE_CELL, ((1024, 1024), 4))
+TRAIN_STEPS = 5
+TRAIN_LR = 3.0
+TRAIN_START = [0.8, 0.3, 0.2]  # the sphere's diffuse at step 0
+TRAIN_RTOL = 1e-3  # two ranks' losses vs one process's
+
+
+def _sphere_diffuse(path):
+    """make_train_step's trainable: the sphere's diffuse reflectance."""
+    return path.startswith("materials/0/diffuse_reflectance")
+
+
+def train_losses(opts, mesh):
+    """TRAIN_STEPS steps of make_train_step (edge-sampled, SGD at TRAIN_LR,
+    seed SEED every step) on the sphere's diffuse, from TRAIN_START toward
+    the slice's render -> (losses, ms per step)."""
+    dev = mesh.device
+    with torch.no_grad():
+        target = rtt.render_image(make_slice_scene(device=dev), opts,
+                                  seed=SEED)
+    s = make_slice_scene(device=dev, sphere_material=(
+        rtt.make_material(diffuse_reflectance=TRAIN_START,
+                          specular_reflectance=[0.2, 0.2, 0.2],
+                          roughness=[0.05], device=dev)))
+    step = make_train_step(opts, mesh=mesh, learning_rate=TRAIN_LR,
+                           trainable=_sphere_diffuse)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, loss = step(s, target, SEED)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, step_ms
+
+
+def gradient_run(scene, opts, mesh=None):
+    """The slice's image and one counted gradient, then fwd+bwd (median of
+    3; under a mesh every rank starts each run together) and the peak
+    memory of those runs; through the sharded entry points over `mesh`
+    when one is given.  Returns CPU tensors and numbers."""
+    with torch.no_grad():
+        img = (rtt.render_image(scene, opts, seed=SEED) if mesh is None else
+               render_image_sharded(scene, opts, seed=SEED, mesh=mesh))
+    gradient(scene, opts, mesh=mesh)  # warm-up
+    grads, launches = counted(lambda: gradient(scene, opts, mesh=mesh))
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gradient(scene, opts, mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"image": img.cpu(), "grads": [g.cpu() for g in grads],
+            "launches": launches, "walls": walls,
+            "ms": statistics.median(walls),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def _rank(devices, cells, train):
+    """One spawned rank (parallel.spawn.run_ranks) on
+    devices[rank]: gradient_run over the mesh for each (resolution, spp)
+    cell; with train, also a profile of one gradient and the train step's
+    losses (on the first cell)."""
+    dev = torch.device(devices[dist.get_rank()])
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(dev)
+    out = []
+    for res, spp in cells:
+        scene = make_slice_scene(res=res, device=dev)
+        opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+        out.append(gradient_run(scene, opts, mesh))
+        if train:
+            dist.barrier()
+            profile_run(f"rank {mesh.rank} of {mesh.world}: one gradient "
+                        "evaluation", lambda: gradient(scene, opts, mesh=mesh),
+                        top=4)
+            out[-1]["losses"], out[-1]["step_ms"] = train_losses(opts, mesh)
+        del scene
+    return out
+
+
+def spawn_ranks(world, devices, cells, train, backend):
+    """_rank on `world` spawned ranks -> per rank, its list of cells."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_ranks(world, _rank, (devices, cells, train), tmp,
+                         backend=backend)
+
+
+def _compare_sharded(tag, label, out, ref):
+    diff = float((out["image"] - ref["image"]).abs().max())
+    print(f"[{tag}] {label}: image max |diff| {diff:.3e} against one "
+          f"process (gate atol {SHARD_IMAGE_ATOL})", flush=True)
+    _check(diff <= SHARD_IMAGE_ATOL, f"{label}: image differs by {diff}")
+    for name, a, b in zip(GRAD_LEAVES, out["grads"], ref["grads"]):
+        r = rel_l2(a, b)
+        print(f"[{tag}] {label}: d/d {name} relative L2 {r:.3e} against "
+              f"one process (gate {SHARD_L2_MAX})", flush=True)
+        _check(bool(torch.isfinite(a).all()) and r <= SHARD_L2_MAX,
+               f"{label}: gradient {name}: relative L2 {r}")
+    _check(all(v > 0 for v in out["launches"].values()),
+           f"{label}: a kernel did not launch: {out['launches']}")
+
+
+def _compare_ranks(tag, label, ranks, ref):
+    """Each rank against one process; the ranks' gradients equal."""
+    for r, out in enumerate(ranks):
+        _compare_sharded(tag, f"{label}, rank {r} of {len(ranks)}", out, ref)
+        for a, b in zip(out["grads"], ranks[0]["grads"]):
+            _check(torch.equal(a, b), f"{label}: the ranks' gradients differ")
+
+
+def _walls(ws):
+    return ", ".join(f"{w:.2f}" for w in ws)
+
+
+def phase_sharded(scene, opts, smi_line):
+    """The slice over two ranks on the one card (gloo: NCCL refuses two
+    ranks on one device) and over a one-rank NCCL group, against one
+    process: image, gradients, the train step, launches per rank, peak
+    memory per rank and fwd+bwd.  Returns the row for the kernels line."""
+    dev = scene.camera.device
+    lap = _Lap(time.perf_counter())
+    ref = gradient_run(scene, opts)
+    profile_run("one process: one gradient evaluation",
+                lambda: gradient(scene, opts), top=4)
+    ref_losses, ref_step_ms = train_losses(opts, make_mesh(dev))
+    lap("sharded: one process")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1)
+        try:
+            nccl = gradient_run(scene, opts, make_mesh(dev))
+        finally:
+            dist.destroy_process_group()
+    print(f"[sharded] one-rank NCCL group: launches {nccl['launches']}",
+          flush=True)
+    _check((nccl["launches"]["closest_hit"], nccl["launches"]["any_hit"])
+           == (32, 16), f"one-rank NCCL launches {nccl['launches']}, want "
+           "32 + 16")
+    _compare_sharded("sharded", "one-rank NCCL group", nccl, ref)
+    lap("sharded: one-rank NCCL group")
+
+    ranks = [cells[0] for cells in spawn_ranks(
+        SHARD_WORLD, [str(dev)] * SHARD_WORLD, [SLICE_CELL], True, "gloo")]
+    lap(f"sharded: {SHARD_WORLD} gloo ranks (spawned)")
+    _compare_ranks("sharded", "one card", ranks, ref)
+    for r, out in enumerate(ranks):
+        got = (out["launches"]["closest_hit"], out["launches"]["any_hit"])
+        print(f"[sharded] rank {r} of {SHARD_WORLD} (gloo, one card): "
+              f"launches per gradient {out['launches']}, predicted "
+              f"{SHARD_LAUNCHES}; peak memory {out['peak_mib']} MiB (one "
+              f"process: {ref['peak_mib']} MiB)", flush=True)
+        _check(got == SHARD_LAUNCHES, f"rank {r} launches {got}, want "
+               f"{SHARD_LAUNCHES}")
+        losses = out["losses"]
+        print(f"[sharded] rank {r} train step losses {losses}; one process "
+              f"{ref_losses}", flush=True)
+        _check(all(b < a for a, b in zip(losses, losses[1:])),
+               f"rank {r}: the loss did not fall at every step: {losses}")
+        _check(np.allclose(losses, ref_losses, rtol=TRAIN_RTOL, atol=0.0),
+               f"rank {r}: train losses differ from one process's")
+    slowest = [max(w) for w in zip(*(out["walls"] for out in ranks))]
+    two_ms = statistics.median(slowest)
+    print(f"[sharded] fwd+bwd 256x256 4spp 1 bounce: one process median "
+          f"{ref['ms']:.3f} ms (all: {_walls(ref['walls'])}); {SHARD_WORLD} "
+          f"ranks on one card (slowest rank) median {two_ms:.3f} ms (all: "
+          f"{_walls(slowest)}); train step ms one process "
+          f"{[round(x, 1) for x in ref_step_ms]}, rank 0 "
+          f"{[round(x, 1) for x in ranks[0]['step_ms']]}; {smi_line}",
+          flush=True)
+    return {"launches_per_rank": [out["launches"] for out in ranks],
+            "launches_one_rank_nccl": nccl["launches"],
+            "peak_mib_per_rank": [out["peak_mib"] for out in ranks],
+            "peak_mib_one_process": ref["peak_mib"],
+            "gradient_ms_one_process": ref["ms"],
+            "gradient_ms_two_ranks": two_ms,
+            "train_losses": ranks[0]["losses"]}
+
+
+# ----------------------------------------------------------------------
 # Peak device memory of the gradient, with and without remat (--memory)
 # ----------------------------------------------------------------------
 
@@ -2184,6 +2408,84 @@ def memory_main():
     return 0
 
 
+# ----------------------------------------------------------------------
+# The lane split over several cards (--cards N)
+# ----------------------------------------------------------------------
+
+
+def phase_cards(world, smi_lines):
+    """The slice's gradient split over `world` ranks, one card each (NCCL),
+    against one process on the first card, per CARDS_CELLS cell
+    (resolution, spp): pixels within atol 1e-6, each leaf's gradient within
+    relative L2 1e-4, the ranks' gradients equal; launches and peak memory
+    per rank; fwd+bwd of one process against the ranks' (the slowest
+    rank's, median of 3).  Returns the rows for the JSON line."""
+    dev = torch.device("cuda", 0)
+    lap = _Lap(time.perf_counter())
+    refs = []
+    for res, spp in CARDS_CELLS:
+        scene = make_slice_scene(res=res, device=dev)
+        refs.append(gradient_run(
+            scene, rtt.RenderOptions(num_samples=spp, max_bounces=1)))
+        del scene
+        lap(f"cards: one process {res[0]}x{res[1]} x {spp} spp")
+    torch.cuda.empty_cache()
+
+    ranks = spawn_ranks(world, [f"cuda:{r}" for r in range(world)],
+                        CARDS_CELLS, False, "nccl")
+    lap(f"cards: {world} ranks (spawned)")
+
+    rows = []
+    for i, ((res, spp), ref) in enumerate(zip(CARDS_CELLS, refs)):
+        cell = f"{res[0]}x{res[1]} x {spp} spp"
+        per_rank = [r_[i] for r_ in ranks]
+        _compare_ranks("cards", cell, per_rank, ref)
+        slowest = [max(w) for w in zip(*(out["walls"] for out in per_rank))]
+        row = {"cell": cell, "world": world,
+               "gradient_ms_one_process": ref["ms"],
+               "gradient_ms_ranks": statistics.median(slowest),
+               "launches_one_process": ref["launches"],
+               "launches_per_rank": [out["launches"] for out in per_rank],
+               "peak_mib_one_process": ref["peak_mib"],
+               "peak_mib_per_rank": [out["peak_mib"] for out in per_rank]}
+        rows.append(row)
+        print(f"[cards] {cell}: fwd+bwd one process median "
+              f"{ref['ms']:.3f} ms (all: {_walls(ref['walls'])}); {world} "
+              f"ranks, one card each (slowest rank) median "
+              f"{row['gradient_ms_ranks']:.3f} ms (all: {_walls(slowest)}); "
+              f"launches one process {ref['launches']}, per rank "
+              f"{row['launches_per_rank'][0]}; peak MiB one process "
+              f"{ref['peak_mib']}, per rank {row['peak_mib_per_rank']}",
+              flush=True)
+    for line in smi_lines:
+        print(f"[cards] {line}", flush=True)
+    return rows
+
+
+def cards_main(world):
+    """`python3 chip_smoke.py --cards N`: phase_cards on N cards."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs CUDA cards", file=sys.stderr)
+        return 1
+    _check(torch.cuda.device_count() >= world,
+           f"--cards {world}: {torch.cuda.device_count()} cards visible")
+    t_start = time.perf_counter()
+    phase_build()
+    smi_line = phase_device()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    rows = phase_cards(world, smi.stdout.strip().splitlines())
+    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"cards": rows}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 class _Lap:
     """Prints the seconds each phase took, on the host clock."""
 
@@ -2236,6 +2538,8 @@ def main():
     lap("cameras")
     fe_rows = phase_frontend(scene, opts, smi_line)
     lap("frontend")
+    shard_row = phase_sharded(scene, opts, smi_line)
+    lap("sharded")
 
     kernels = []
     for kind, rows in per.items():
@@ -2286,6 +2590,14 @@ def main():
                 if k not in ("adam_step_ms", "adam_losses")}
         kernels[-1]["frontend"]["adam_step_ms"] = fe_rows["frontend"][
             "adam_step_ms"]
+        kernels[-1]["sharded"] = {
+            "launches_per_rank": [x[kind] for x in
+                                  shard_row["launches_per_rank"]],
+            "launches_one_rank_nccl": shard_row["launches_one_rank_nccl"][
+                kind],
+            **{k: shard_row[k] for k in (
+                "peak_mib_per_rank", "peak_mib_one_process",
+                "gradient_ms_one_process", "gradient_ms_two_ranks")}}
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {
                 k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}
@@ -2306,4 +2618,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(memory_main() if sys.argv[1:] == ["--memory"] else main())
+    if sys.argv[1:] == ["--memory"]:
+        sys.exit(memory_main())
+    if sys.argv[1:2] == ["--cards"] and len(sys.argv) == 3:
+        sys.exit(cards_main(int(sys.argv[2])))
+    sys.exit(main())

@@ -20,8 +20,12 @@ checkpoints (`save_scene`/`load_scene`); remat
 (`RenderOptions(remat=True)`) on the edge-sampled backward
 (`isect_replay_max_mb` is accepted and changes nothing); the device and
 timing helpers (`set_device`, `set_print_timing`, `timed`,
-`profile_trace`).  torch.autograd through `render_image` alone gives only
-the continuous gradients.
+`profile_trace`); rendering and training over several GPUs
+(`redner_tpu_torch.parallel.sharding`, one process per card over
+torch.distributed); `RenderOptions(split_shadow_sweep=False)` and the
+`bruteforce` and `cluster` engines are accepted and run the split sweep
+and the plain queries.  torch.autograd through
+`render_image` alone gives only the continuous gradients.
 
 The pyredner-style front end sits on top: `redner_tpu_torch.frontend`
 (`import redner_tpu_torch.frontend as pyredner`: redner_torch's classes,

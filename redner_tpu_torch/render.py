@@ -22,8 +22,14 @@ torch.utils.checkpoint when grad is enabled.  `isect_replay_max_mb` is
 accepted and changes nothing: the backward re-runs its ray queries (see
 render_grad).
 
-Not ported yet (they raise): the batched shadow sweep
-(split_shadow_sweep=False) and sharding.
+`split_shadow_sweep=False` is accepted and changes nothing: shadow rays
+go through the any-hit query either way.  redner_tpu's single closest-hit
+sweep over shadow and continuation rays gives the same hits, and on an H100
+it made no workload faster (PERF.md).
+
+`pixel_sharding` (parallel.sharding.pixel_sharding) splits the sample
+loop's pixel lanes over the ranks of a process group; see
+_render_image_impl and core/shardutil.py.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ from redner_tpu_torch import accel
 from redner_tpu_torch.camera import Camera, sample_primary_rays
 from redner_tpu_torch.channels import ChannelInfo, Channels
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.shardutil import (gather_lanes, lane_block,
+                                             reduce_leaf_grads, shard_count,
+                                             shard_rank)
 from redner_tpu_torch.core.types import (Intersection, Ray, RayDifferential,
                                          SurfacePoint)
 from redner_tpu_torch.edge import build_edge_table, secondary_edge_surrogate
@@ -51,7 +60,8 @@ from redner_tpu_torch.sampler import SamplerType
 from redner_tpu_torch.scene import (FlatScene, Scene, _fetch_material_stack,
                                     fetch_local_material, flatten_scene,
                                     gather_face_corner_attribs,
-                                    gather_face_vertices)
+                                    gather_face_vertices, scene_leaves,
+                                    scene_with_leaves)
 
 
 class RenderOptions:
@@ -88,8 +98,8 @@ class RenderOptions:
         self.use_secondary_edge_sampling = bool(use_secondary_edge_sampling)
         self.num_edge_samples = num_edge_samples
         self.remat = bool(remat)
-        # Shadow rays through the any-hit kernel, continuation rays through
-        # the closest-hit kernel; the batched single sweep is not ported.
+        # Shadow rays through the any-hit query, continuation rays through
+        # the closest-hit one, whatever the value (see the module doc).
         self.split_shadow_sweep = bool(split_shadow_sweep)
         self.isect_replay_max_mb = float(isect_replay_max_mb)
         self._frozen = True
@@ -438,6 +448,7 @@ def trace_radiance(
     secondary_edge_table=None,
     precise_primary: bool = False,
     engine=None,
+    secondary_lane_sharding=None,
 ):
     """Full-path radiance estimate for arbitrary primary rays -> (n, 3)
     (redner_tpu/render.py:572-797, without the replay branch).
@@ -453,7 +464,9 @@ def trace_radiance(
     secondary_d_pixel: (n, 3) per-lane radiance adjoint.  When given, every
     bounce also emits the secondary-edge surrogate from this loop's
     intersections, light samples and materials (src/pathtracer.cpp:431-707),
-    and the return value is (radiance, surrogate scalar).
+    and the return value is (radiance, surrogate scalar);
+    secondary_lane_sharding is the pixel sharding the lanes belong to (the
+    surrogate's firefly clamp sums over all ranks' lanes).
     """
     n = ray.org.shape[0]
     kw = dict(dtype=ray.org.dtype, device=ray.org.device)
@@ -540,7 +553,7 @@ def trace_radiance(
                 fs, options, seed, lane_ids, sample_id, bounce,
                 sp, lm, wi, min_rough, active, throughput,
                 secondary_d_pixel, nee_dir, secondary_edge_table,
-                engine=engine,
+                engine=engine, lane_sharding=secondary_lane_sharding,
             )
 
         tp = throughput * scatter_bsdf
@@ -572,9 +585,10 @@ SPEC_KERNEL_CAP = 64.0
 
 def _secondary_edge_term(fs, options, seed, lane_ids, sample_id, bounce,
                          sp, lm, wi, min_rough, active, throughput,
-                         d_pixel, nee_dir, edge_table=None, engine=None):
+                         d_pixel, nee_dir, edge_table=None, engine=None,
+                         lane_sharding=None):
     """One bounce's secondary-edge surrogate, fed from the live wavefront
-    state (redner_tpu/render.py:807-880)."""
+    state (redner_tpu/render.py:807-880), on this rank's lanes."""
 
     def bsdf_eval(wo):
         return bsdf(lm, sp, wi, wo, min_rough)
@@ -614,6 +628,7 @@ def _secondary_edge_term(fs, options, seed, lane_ids, sample_id, bounce,
         edge_table=edge_table,
         shading_normal=pn,
         engine=engine,
+        lane_sharding=lane_sharding,
     )
 
 
@@ -641,14 +656,6 @@ def swizzle_order(vh: int, vw: int):
     return order, inverse
 
 
-def _check_supported(options: RenderOptions):
-    if not options.split_shadow_sweep:
-        raise NotImplementedError(
-            "redner_tpu_torch: split_shadow_sweep=False (shadow and "
-            "continuation rays in one closest-hit sweep) is not ported; "
-            "shadow rays go through the any-hit kernel")
-
-
 def render_sample(
     fs: FlatScene,
     camera: Camera,
@@ -663,6 +670,7 @@ def render_sample(
     precise_primary: bool = False,
     rays_coherent: bool = False,
     engine=None,
+    secondary_lane_sharding=None,
 ):
     """Trace one sample per lane; returns the (num_lanes, C) contribution
     (unweighted; the caller averages), lane k = pixel pixel_order[k]
@@ -677,9 +685,9 @@ def render_sample(
     the keys).  rays_coherent: the caller guarantees such rays are
     tile-coherent (the primary-edge samples are Morton-sorted), so every
     ray query skips its sort.  secondary_d_pixel / secondary_edge_table go
-    to trace_radiance's fused secondary-edge pass; the return value is then
+    to trace_radiance's fused secondary-edge pass, with the pixel sharding
+    of the lanes (secondary_lane_sharding); the return value is then
     (contribution, surrogate scalar).  precise_primary is ignored."""
-    _check_supported(options)
     ci = options.channel_info
     top, left, bottom, right = camera.viewport_or_full
     dev = fs.device
@@ -727,6 +735,7 @@ def render_sample(
             dim_start=dim.dim, primary_isect=isect, coherent=coherent,
             secondary_d_pixel=secondary_d_pixel,
             secondary_edge_table=secondary_edge_table, engine=engine,
+            secondary_lane_sharding=secondary_lane_sharding,
         )
         radiance, surr = out if secondary_d_pixel is not None else (out, None)
         roff = ci.radiance_dimension
@@ -740,32 +749,55 @@ def render_sample(
 
 
 def render_image(scene: Scene, options: RenderOptions, seed=0,
-                 engine=None) -> torch.Tensor:
+                 engine=None, pixel_sharding=None) -> torch.Tensor:
     """Differentiable forward render -> (vh, vw, C) image on the scene's
     device (the card unless the scene was built with device="cpu").
 
     torch.autograd through it gives the continuous gradients;
     render_grad.render adds the edge-sampled visibility terms.
     engine: None = the kernels on CUDA (plain versions on CPU); "plain"
-    forces the plain ray queries (see accel.intersect)."""
-    return _render_image_impl(scene, options, seed, engine)
+    forces the plain ray queries ("bruteforce" and "cluster" are its
+    aliases, see accel.intersect).
+    pixel_sharding (parallel.sharding.pixel_sharding): this rank shades its
+    block of the pixels and every rank returns the whole image; under
+    autograd each scene leaf's gradient is summed over the ranks, so every
+    rank holds the one-process gradient."""
+    if pixel_sharding is not None and torch.is_grad_enabled():
+        leaves = scene_leaves(scene)
+        grad_leaves = [x for x in leaves if x.requires_grad]
+        if grad_leaves:
+            wrapped = iter(reduce_leaf_grads(grad_leaves, pixel_sharding))
+            scene = scene_with_leaves(scene, [
+                next(wrapped) if x.requires_grad else x for x in leaves])
+    return _render_image_impl(scene, options, seed, engine,
+                              pixel_sharding=pixel_sharding)
 
 
 def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
-                       engine=None, secondary_d_radiance=None):
+                       engine=None, secondary_d_radiance=None,
+                       pixel_sharding=None):
     """render_image's sample loop (redner_tpu/render.py:1055-1190).
 
     secondary_d_radiance: (vh, vw, 3) radiance adjoint.  When given, the
     loop also accumulates the secondary-edge surrogate fused into the same
     wavefront, and the return value is (image, surrogate scalar).
 
+    pixel_sharding: the n pixel lanes are padded to n_pad, a multiple of
+    the world size (pad lanes shade pixel order[0], get a zero adjoint and
+    are dropped), and this rank shades lanes [r n_pad / world,
+    (r + 1) n_pad / world) of the swizzled order with their global pixel
+    ids; the image is gathered over the ranks (core.shardutil.gather_lanes),
+    the surrogate is this rank's part.  The leaves' gradients are not
+    reduced here: render_image and render_grad do that once.
+
     options.remat with grad enabled checkpoints each pass (non-reentrant,
     so torch.autograd.grad works through it): its residuals are dropped and
     the pass re-runs in the backward, ray queries included; the RNG is
     stateless and both kernels are deterministic, so the re-run issues the
     same rays."""
-    _check_supported(options)
     fs = flatten_scene(scene)
+    if pixel_sharding is not None:
+        pixel_sharding.check_device(fs.device)
     camera = scene.camera
     top, left, bottom, right = camera.viewport_or_full
     vw, vh = right - left, bottom - top
@@ -774,18 +806,24 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
     seed = int(seed) & 0xFFFFFFFF
     order_np, inverse_np = swizzle_order(vh, vw)
     order = torch.as_tensor(order_np, device=dev)
+    n = vw * vh
+    world = shard_count(pixel_sharding)
+    n_pad = -(-n // world) * world
+    if n_pad != n:
+        order = torch.cat([order, order[:1].expand(n_pad - n)])
+    lo, hi = lane_block(n_pad, shard_rank(pixel_sharding), world)
+    nb = hi - lo  # this rank's lanes per sample
 
     # Batch K samples into the lane axis per pass when the viewport is
     # smaller than SAMPLES_LANE_TARGET lanes.  The RNG is keyed by
     # (pixel, sample), so the result equals one sample per pass up to
     # float summation order.
-    n = vw * vh
     spp = options.num_samples
-    K = max(1, min(spp, SAMPLES_LANE_TARGET // max(n, 1)))
+    K = max(1, min(spp, SAMPLES_LANE_TARGET // max(n_pad, 1)))
     npass = -(-spp // K)
-    order_t = order.repeat(K)
+    order_t = order[lo:hi].repeat(K)
     sub = torch.arange(K, device=dev)
-    acc = torch.zeros((n, ci.num_total_dimensions), dtype=fs.vertices.dtype,
+    acc = torch.zeros((nb, ci.num_total_dimensions), dtype=fs.vertices.dtype,
                       device=dev)
     surr_total = torch.zeros((), dtype=fs.vertices.dtype, device=dev)
     d_lane = edge_table = None
@@ -793,21 +831,25 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
         # Per scene, not per sample: built once outside the loop.
         edge_table = build_edge_table(fs)
         d_flat = secondary_d_radiance.detach().reshape(-1, 3)
-        d_lane = d_flat[order].repeat(K, 1)  # swizzled lanes, K samples
+        d_pad = d_flat[order]
+        if n_pad != n:  # pad lanes: a zero adjoint, no surrogate
+            d_pad[n:] = 0.0
+        d_lane = d_pad[lo:hi].repeat(K, 1)  # swizzled lanes, K samples
 
     def one_pass(sample_vec, d_pixel):
         return render_sample(
             fs, camera, options, seed, sample_vec, pixel_order=order_t,
             engine=engine, secondary_d_pixel=d_pixel,
-            secondary_edge_table=edge_table)
+            secondary_edge_table=edge_table,
+            secondary_lane_sharding=pixel_sharding)
 
     remat = options.remat and torch.is_grad_enabled()
     for pass_id in range(npass):
         sample_ids = pass_id * K + sub
         w = (sample_ids < spp).to(acc.dtype)  # ragged-tail sample mask
         d_pixel = (None if d_lane is None
-                   else d_lane * w.repeat_interleave(n)[:, None])
-        args = (sample_ids.repeat_interleave(n), d_pixel)
+                   else d_lane * w.repeat_interleave(nb)[:, None])
+        args = (sample_ids.repeat_interleave(nb), d_pixel)
         if remat:
             out = checkpoint(one_pass, *args, use_reentrant=False,
                              preserve_rng_state=False)
@@ -819,10 +861,10 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
             contrib, surr = out
             surr_total = surr_total + surr
         acc = acc + torch.sum(
-            contrib.reshape(K, n, ci.num_total_dimensions) * w[:, None, None],
+            contrib.reshape(K, nb, ci.num_total_dimensions) * w[:, None, None],
             dim=0)
-    img = acc / options.num_samples
-    img = img[torch.as_tensor(inverse_np, device=dev)]  # lane k -> order[k]
+    img = gather_lanes(acc / options.num_samples, lo, n_pad, pixel_sharding)
+    img = img[:n][torch.as_tensor(inverse_np, device=dev)]  # lane k -> order[k]
     img = img.reshape(vh, vw, ci.num_total_dimensions)
     if d_lane is None:
         return img

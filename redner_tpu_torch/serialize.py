@@ -49,6 +49,14 @@ def _walk(obj, path, leaves, fill=None):
     return repr(obj), obj
 
 
+def named_tensors(obj) -> Dict[str, torch.Tensor]:
+    """{path: tensor} of every tensor of a Scene (or dataclass), under the
+    paths state_dict uses ("materials/0/diffuse_reflectance/texels")."""
+    leaves: Dict[str, torch.Tensor] = {}
+    _walk(obj, (), leaves)
+    return leaves
+
+
 def state_dict(obj) -> Dict[str, Any]:
     """Scene (or dataclass) -> {path: numpy array} plus the structure token
     under '__structure__'."""

@@ -507,3 +507,63 @@ def test_frontend_renders_on_the_card(dev):
     assert torch.equal(img.detach(), ref.detach())
     g, r = verts.grad.cpu().numpy(), ref_verts.grad.cpu().numpy()
     np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["bruteforce", "cluster"])
+def test_engines_match_the_kernels(dev, engine):
+    """The bruteforce and cluster names (the plain queries on CUDA
+    tensors) return the kernels' hits and occlusion, and launch no
+    kernel."""
+    scene = _scene(dev)
+    fs = rtt.flatten_scene(scene)
+    on = fs.vertices[fs.faces[:, 0]][:2048].detach().cpu().numpy()
+    for ray in (_rays(dev, 4096, 11), _rays(dev, 2048, 12, on=on)):
+        k = accel.intersect(fs, ray)
+        ko = accel.occluded(fs, ray)
+        ic.reset_launch_counts()
+        x = accel.intersect(fs, ray, engine=engine)
+        xo = accel.occluded(fs, ray, engine=engine)
+        assert ic.LAUNCHES == {"closest_hit": 0, "any_hit": 0}
+        assert x.tri_id.is_cuda and xo.is_cuda
+        assert torch.equal(x.tri_id, k.tri_id)
+        assert torch.equal(xo, ko)
+        hit = k.valid
+        assert int(hit.sum()) > 100
+        torch.testing.assert_close(x.t[hit], k.t[hit], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_render_matches_one_process(dev, tmp_path):
+    """render_sharded over a one-rank NCCL group: the collectives run and
+    the image and gradients are the one-process ones."""
+    import torch.distributed as dist
+
+    from redner_tpu_torch.parallel.sharding import make_mesh, render_sharded
+
+    w = np.random.default_rng(6).uniform(0.5, 1.5, (16, 16, 3)).astype(
+        np.float32)
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    img, grads = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(dev)
+        scene = _scene(dev, res=(16, 16))
+        leaves = ([scene.materials[0].diffuse_reflectance.texels,
+                   scene.area_lights[0].intensity]
+                  + [s.vertices for s in scene.shapes]
+                  + [scene.camera.position])
+        for x in leaves:
+            x.requires_grad_(True)
+        img_s = render_sharded(scene, opts, seed=5, mesh=mesh)
+        grads_s = torch.autograd.grad(
+            torch.sum(img_s * torch.as_tensor(w, device=dev)), leaves)
+    finally:
+        dist.destroy_process_group()
+    assert mesh.world == 1 and mesh.group is not None
+    torch.testing.assert_close(img_s.detach(), img, rtol=0, atol=1e-6)
+    for g, gs in zip(grads, grads_s):
+        np.testing.assert_allclose(gs.cpu().numpy(), g, rtol=1e-4,
+                                   atol=1e-6 * np.abs(g).max())

@@ -98,15 +98,6 @@ def test_continuous_gradients_match_jax():
         close(s.vertices.grad.numpy(), g)
 
 
-@pytest.mark.parametrize("option", [
-    dict(split_shadow_sweep=False),
-], ids=["batched_shadow_sweep"])
-def test_unported_options_raise(option):
-    tscene = port_scene(single_triangle_scene(res=(4, 4)))
-    with pytest.raises(NotImplementedError):
-        rtt.render_image(tscene, rtt.RenderOptions(**option))
-
-
 def test_bench_scene_builds_on_cpu():
     """The user path of the slice's scene (generate_sphere + quad floor +
     generate_quad_light through scene_from_objects), at a tiny size."""
