@@ -128,17 +128,45 @@ Phases (any failure exits non-zero):
              one process within rtol 1e-3); launches per rank (28 + 14 by
              the code), peak memory per rank, fwd+bwd of one process
              against the two ranks';
- 13. report  one `kernels` JSON line, the nvidia-smi line, and the final
+ 13. graph   the compiled render: rtt.render and rtt.render_image replay
+             cached CUDA graphs (redner_tpu_torch.graphs).  The eager slice,
+             envtex and G-buffer gradients under
+             torch.cuda.set_sync_debug_mode("error") (no host sync); the
+             slice, envtex and G-buffer gradients and one remat gradient
+             graphed against eager at seeds 11 and 12 and after an in-place
+             update of the vertices (every pixel within atol 1e-6, each
+             leaf's gradient within relative L2 1e-4, printed beside the
+             eager-vs-eager value; one capture per key, none on later
+             calls, capture seconds); render_image graphed against eager
+             and its forward wall (median of 5); the front end's five Adam
+             steps (losses within rtol 1e-3); the kernel nodes per graphed
+             gradient (32 + 16, counted at capture and in a profile of the
+             replays); both kernels against their plain versions on every
+             batch of one gradient through the device-count interface (0
+             lanes off); fwd+bwd eager and graphed (median of 3) per path,
+             the device busy and idle share of one graphed gradient, the
+             peak memory eager and graphed, the memory the graph cache
+             holds, and one 1024x1024 x 4 spp slice gradient eager against
+             graphed (the device-bound contrast);
+ 14. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
+
+Phases 4-12 run inside eager_routes(): rtt.render, rtt.render_image and
+the utilities' render go through rtt.make_render's eager function and the
+sample loop, so their launch counts, captured batches and decision traces
+see every launch from Python and their numbers stay comparable with the
+eager render's.  Only [graph] runs the graphs.
 
     python3 chip_smoke.py --memory
 
-runs only the memory measurement (phase_memory): the peak device memory of
-the slice's gradient with and without remat, at 256x256 x 4 spp and at
-1024x1024 x 16 and x 32 spp, with the secondary-edge candidate draw in
-runs of lanes (edge.CANDIDATE_CHUNK) and, but at 32 spp, in one run; and
-what the allocations live at the peak are, by the line of the port that
-made them.
+runs only the memory measurement (phase_memory, eager): the peak device
+memory of the slice's gradient with and without remat, at 256x256 x 4 spp
+and at 1024x1024 x 16 and x 32 spp, with the secondary-edge candidate draw
+in runs of lanes (edge.CANDIDATE_CHUNK) and, but at 32 spp, in one run;
+and what the allocations live at the peak are, by the line of the port
+that made them; then the graphed gradient's first-call and replay peaks
+and what its graphs keep, at 256x256 x 4 and 1024x1024 x 16 spp
+(graphed_memory).
 
     python3 chip_smoke.py --cards N
 
@@ -151,6 +179,7 @@ ranks'.
 It imports nothing of JAX or redner_tpu.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -166,7 +195,7 @@ import torch.distributed as dist
 
 import redner_tpu_torch as rtt
 import redner_tpu_torch.frontend as pyredner
-from redner_tpu_torch import accel
+from redner_tpu_torch import accel, graphs
 from redner_tpu_torch import sampler as sampler_mod
 from redner_tpu_torch.camera import sample_primary_rays
 from redner_tpu_torch.core.types import Ray
@@ -424,8 +453,9 @@ def profile_run(label, run, top=12):
     count, busy time and idle share of the profiled wall, and the kernels
     that take the most time.  Only device activity is recorded (the host's
     op events of a 100k-kernel run cost the profiler tens of seconds to
-    collect).  Diagnostics only: a profiler that records no device activity
-    prints "not measured" and fails nothing."""
+    collect).  Returns {"kernels", "busy_ms", "wall_ms", "idle", "by_name":
+    {name: count}}, or None when not measured: a profiler that records no
+    device activity prints "not measured" and fails nothing here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -440,10 +470,10 @@ def profile_run(label, run, top=12):
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     except RuntimeError as e:  # profiler unavailable in this environment
         print(f"[profile] not measured: {e}", flush=True)
-        return
+        return None
     if not kern:
         print("[profile] not measured: no device activity recorded", flush=True)
-        return
+        return None
     busy = sum(e.time_range.elapsed_us() for e in kern)
     by_name = {}
     for e in kern:
@@ -456,6 +486,9 @@ def profile_run(label, run, top=12):
         print(f"[profile]   {t / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
     print(f"[profile] device activity only; the profile took "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"kernels": len(kern), "busy_ms": busy / 1e3,
+            "wall_ms": wall_us / 1e3, "idle": 1 - busy / wall_us,
+            "by_name": {n: c for n, (c, _) in by_name.items()}}
 
 
 def work_bound(fs, rb, steps=None):
@@ -480,7 +513,8 @@ def work_bound(fs, rb, steps=None):
     tris = (visited.to(torch.int64) * real).sum(dim=1)
     tests = int((tris * live_per_tile).sum())
     nbytes = 4 * (rb.R.numel() + rb.tmin.numel() + rb.tmax.numel()
-                  + lay.Tp.numel() + rb.pairs.numel() + 2 * rb.R.shape[0])
+                  + lay.Tp.numel() + 2 * int(rb.count) + 1
+                  + 2 * rb.R.shape[0])
     t_ops = tests * OPS_PER_TEST / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
@@ -678,7 +712,7 @@ def measure_launch(label, kind, fs, rb):
         _check(bad == 0, f"{label} {kind}: blocked differs from the plain "
                f"version on {bad} lanes")
     cnt = rb.mask.sum(dim=1).to(torch.float64)
-    print(f"[times] {label} {kind}: {rb.n} rays, {rb.pairs.shape[0]} active "
+    print(f"[times] {label} {kind}: {rb.n} rays, {int(rb.count)} active "
           f"(tile, chunk) pairs of {rb.mask.numel()}, active chunks per tile "
           f"mean {float(cnt.mean()):.2f} max {int(cnt.max())}, {tests} "
           f"ray-triangle tests; kernel {k_ms:.4f} ms ({k_lo:.4f}-{k_hi:.4f}), "
@@ -709,12 +743,17 @@ GRAD_RTOL = 1e-4  # kernels vs plain queries: same torch code, index_add order
 GRAD_L2_MAX = 0.05  # card vs CPU: ulp-level picks may flip a few lanes
 
 
+def slice_leaves(scene):
+    """The tensors of GRAD_LEAVES."""
+    return [scene.shapes[0].vertices, scene.area_lights[0].intensity,
+            scene.materials[0].diffuse_reflectance.texels,
+            scene.camera.position]
+
+
 def gradient(scene, opts, engine=None, mesh=None):
     """d render(scene).sum() / d GRAD_LEAVES, with both edge samplers;
     through render_sharded over `mesh` when one is given."""
-    leaves = [scene.shapes[0].vertices, scene.area_lights[0].intensity,
-              scene.materials[0].diffuse_reflectance.texels,
-              scene.camera.position]
+    leaves = slice_leaves(scene)
     for x in leaves:
         x.requires_grad_(True)
     try:
@@ -989,11 +1028,16 @@ ENVTEX_LEAVES = ("sphere vertices", "sphere diffuse texels",
                  "envmap texels", "light intensity")
 
 
+def envtex_leaves(scene):
+    """The tensors of ENVTEX_LEAVES."""
+    return [scene.shapes[0].vertices,
+            scene.materials[0].diffuse_reflectance.texels,
+            scene.envmap.values.texels, scene.area_lights[0].intensity]
+
+
 def envtex_gradient(scene, opts, engine=None):
     """d render(scene).sum() / d ENVTEX_LEAVES, with both edge samplers."""
-    leaves = [scene.shapes[0].vertices,
-              scene.materials[0].diffuse_reflectance.texels,
-              scene.envmap.values.texels, scene.area_lights[0].intensity]
+    leaves = envtex_leaves(scene)
     for x in leaves:
         x.requires_grad_(True)
     try:
@@ -1203,6 +1247,13 @@ def deferred_lights(point_position):
     ]
 
 
+def gbuffer_leaves(scene):
+    """The tensors of AOV_LEAVES["g_buffer"]."""
+    m0 = scene.materials[0]
+    return [scene.shapes[0].vertices, m0.diffuse_reflectance.texels,
+            m0.generic_texture.texels, scene.camera.position]
+
+
 def aov_render(name, scene, engine=None, grad=False):
     """One of AOV_RENDERS on scene (a make_envtex_scene(generic=16) scene)
     -> (output, gradients of sum(output * w) w.r.t. AOV_LEAVES[name] or
@@ -1215,18 +1266,17 @@ def aov_render(name, scene, engine=None, grad=False):
     Sobol; screen_gradient: screen_gradient_image at 4 spp, 1 bounce,
     Sobol, with primary edges (forward only)."""
     m0 = scene.materials[0]
-    point = torch.tensor(POINT_LIGHT, device=scene.camera.device)
     if name == "screen_gradient":
         opts = rtt.RenderOptions(num_samples=4, max_bounces=1,
                                  sampler_type=rtt.SamplerType.sobol)
         return rtt.screen_gradient_image(scene, opts, seed=SEED,
                                          engine=engine), None
     if name == "g_buffer":
-        leaves = [scene.shapes[0].vertices, m0.diffuse_reflectance.texels,
-                  m0.generic_texture.texels, scene.camera.position]
+        leaves = gbuffer_leaves(scene)
         fn = lambda: rtt.render_g_buffer(scene, AOV_CHANNELS, seed=SEED,
                                          engine=engine)
     elif name == "deferred":
+        point = torch.tensor(POINT_LIGHT, device=scene.camera.device)
         leaves = [scene.shapes[0].vertices, m0.diffuse_reflectance.texels,
                   point]
         fn = lambda: rtt.render_deferred(scene, deferred_lights(point),
@@ -1888,6 +1938,44 @@ def _check_launches(label, got, want):
            f"{label}: launches {got}, want {want}")
 
 
+def frontend_adam(fe, dev, tag, smi_line):
+    """Tutorial 01's loop on front-end scene fe: ADAM_STEPS Adam steps on
+    the sphere's diffuse toward a target rendered with another diffuse,
+    the same seed every step; the diffuse is put back after.  Returns
+    (losses, ms per step); the loss must fall."""
+    target_fe = frontend_slice_scene()
+    target_fe.materials[0].diffuse_reflectance.texels = torch.tensor(
+        [0.8, 0.3, 0.2], device=dev)
+    with torch.no_grad():
+        target = pyredner.render(target_fe, num_samples=4, max_bounces=1,
+                                 seed=SEED)
+    start = fe.materials[0].diffuse_reflectance.texels
+    diffuse = start.clone()
+    diffuse.requires_grad_(True)
+    fe.materials[0].diffuse_reflectance.texels = diffuse
+    adam = torch.optim.Adam([diffuse], lr=0.05)
+    losses, step_ms = [], []
+    for step in range(ADAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adam.zero_grad()
+        loss = ((pyredner.render(fe, num_samples=4, max_bounces=1, seed=SEED)
+                 - target) ** 2).sum()
+        loss.backward()
+        adam.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        _check(bool(torch.isfinite(diffuse.grad).all()),
+               f"Adam step {step}: non-finite gradient")
+        print(f"[{tag}] Adam step {step}: loss {losses[-1]:.6g}, diffuse "
+              f"{[round(x, 4) for x in diffuse.detach().tolist()]}, "
+              f"{step_ms[-1]:.3f} ms ({smi_line})", flush=True)
+    _check(losses[-1] < losses[0], f"the Adam loss did not fall: {losses}")
+    fe.materials[0].diffuse_reflectance.texels = start
+    return losses, step_ms
+
+
 def phase_frontend(scene, opts, smi_line):
     """The front end on the slice, its inverse-rendering loop and its
     utilities; then remat on the functional slice gradient, and the
@@ -1929,38 +2017,7 @@ def phase_frontend(scene, opts, smi_line):
                f"front-end gradient {name}: relative L2 {r}")
     lap("frontend vs functional")
 
-    # Tutorial 01's loop: Adam on the sphere's diffuse toward a target
-    # rendered with another diffuse, the same seed every step.
-    target_fe = frontend_slice_scene()
-    target_fe.materials[0].diffuse_reflectance.texels = torch.tensor(
-        [0.8, 0.3, 0.2], device=dev)
-    with torch.no_grad():
-        target = pyredner.render(target_fe, num_samples=4, max_bounces=1,
-                                 seed=SEED)
-    diffuse = fe.materials[0].diffuse_reflectance.texels.clone()
-    diffuse.requires_grad_(True)
-    fe.materials[0].diffuse_reflectance.texels = diffuse
-    adam = torch.optim.Adam([diffuse], lr=0.05)
-    losses, step_ms = [], []
-    for step in range(ADAM_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        adam.zero_grad()
-        loss = ((pyredner.render(fe, num_samples=4, max_bounces=1, seed=SEED)
-                 - target) ** 2).sum()
-        loss.backward()
-        adam.step()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss.detach()))
-        _check(bool(torch.isfinite(diffuse.grad).all()),
-               f"Adam step {step}: non-finite gradient")
-        print(f"[frontend] Adam step {step}: loss {losses[-1]:.6g}, diffuse "
-              f"{[round(x, 4) for x in diffuse.detach().tolist()]}, "
-              f"{step_ms[-1]:.3f} ms ({smi_line})", flush=True)
-    _check(losses[-1] < losses[0], f"the Adam loss did not fall: {losses}")
-    fe.materials[0].diffuse_reflectance.texels = torch.tensor(
-        [0.5, 0.5, 0.5], device=dev)
+    losses, step_ms = frontend_adam(fe, dev, "frontend", smi_line)
     lap("frontend Adam")
 
     # The front end's utilities on the aov scene.
@@ -2154,17 +2211,19 @@ def _rank(devices, cells, train):
     torch.cuda.set_device(dev)
     mesh = make_mesh(dev)
     out = []
-    for res, spp in cells:
-        scene = make_slice_scene(res=res, device=dev)
-        opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
-        out.append(gradient_run(scene, opts, mesh))
-        if train:
-            dist.barrier()
-            profile_run(f"rank {mesh.rank} of {mesh.world}: one gradient "
-                        "evaluation", lambda: gradient(scene, opts, mesh=mesh),
-                        top=4)
-            out[-1]["losses"], out[-1]["step_ms"] = train_losses(opts, mesh)
-        del scene
+    with eager_routes():
+        for res, spp in cells:
+            scene = make_slice_scene(res=res, device=dev)
+            opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+            out.append(gradient_run(scene, opts, mesh))
+            if train:
+                dist.barrier()
+                profile_run(f"rank {mesh.rank} of {mesh.world}: one gradient "
+                            "evaluation",
+                            lambda: gradient(scene, opts, mesh=mesh), top=4)
+                out[-1]["losses"], out[-1]["step_ms"] = train_losses(opts,
+                                                                     mesh)
+            del scene
     return out
 
 
@@ -2266,6 +2325,347 @@ def phase_sharded(scene, opts, smi_line):
             "gradient_ms_one_process": ref["ms"],
             "gradient_ms_two_ranks": two_ms,
             "train_losses": ranks[0]["losses"]}
+
+
+# ----------------------------------------------------------------------
+# The compiled render: render and render_image as cached CUDA graphs
+# ----------------------------------------------------------------------
+
+GRAPH_IMAGE_ATOL = 1e-6  # graphed vs eager image, every pixel
+GRAPH_L2_MAX = 1e-4  # graphed vs eager gradient, relative L2 per leaf
+GRAPH_LOSS_RTOL = 1e-3  # the front end's Adam losses, graphed vs eager
+GRAPH_NODES = {"closest_hit": 32, "any_hit": 16}  # per graphed gradient
+GRAPH_BIG = ((1024, 1024), 4)  # the device-bound contrast
+
+
+@contextlib.contextmanager
+def eager_routes():
+    """Inside, rtt.render, rtt.render_image and the utilities' render run
+    eagerly: render as rtt.make_render's function, render_image as its
+    sample loop.  Every phase before [graph] (and --memory's live and
+    remat cells, --cards) runs inside it, so that its launch counts,
+    captured batches and decision traces see each launch from Python and
+    its numbers stay comparable with the eager render's."""
+    from redner_tpu_torch import render_utils
+    from redner_tpu_torch.render import _render_image_impl
+
+    saved = rtt.render, rtt.render_image, render_utils._render
+
+    def render(scene, options, seed=0, engine=None, pixel_sharding=None):
+        return rtt.make_render(options, pixel_sharding,
+                               engine=engine)(scene, seed)
+
+    def render_image(scene, options, seed=0, engine=None,
+                     pixel_sharding=None):
+        if pixel_sharding is not None:
+            return saved[1](scene, options, seed, engine, pixel_sharding)
+        dev = scene.shapes[0].vertices.device
+        return _render_image_impl(scene, options,
+                                  sampler_mod._as_u32(seed, dev), engine)
+
+    rtt.render, rtt.render_image, render_utils._render = (
+        render, render_image, render)
+    try:
+        yield
+    finally:
+        rtt.render, rtt.render_image, render_utils._render = saved
+
+
+def img_grads(fn, leaves):
+    """fn()'s image and the gradients of sum(image * w) w.r.t. leaves, w
+    weighting the channels 0.5..1.5."""
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        img = fn()
+        w = torch.linspace(0.5, 1.5, img.shape[-1], device=img.device)
+        grads = torch.autograd.grad(torch.sum(img * w), leaves)
+        return img.detach(), [g.detach() for g in grads]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def graph_paths(scene, opts, env, aov):
+    """name -> (scene, leaf names, leaves of a scene, render(scene, seed)):
+    the slice, envtex and G-buffer gradients and one remat gradient."""
+    remat = rtt.RenderOptions(num_samples=4, max_bounces=1, remat=True)
+    return {
+        "slice": (scene, GRAD_LEAVES, slice_leaves,
+                  lambda s, sd: rtt.render(s, opts, seed=sd)),
+        "envtex": (env, ENVTEX_LEAVES, envtex_leaves,
+                   lambda s, sd: rtt.render(s, opts, seed=sd)),
+        "g_buffer": (aov, AOV_LEAVES["g_buffer"], gbuffer_leaves,
+                     lambda s, sd: rtt.render_g_buffer(s, AOV_CHANNELS,
+                                                       seed=sd)),
+        "remat": (scene, GRAD_LEAVES, slice_leaves,
+                  lambda s, sd: rtt.render(s, remat, seed=sd)),
+    }
+
+
+def sync_check(paths):
+    """The eager slice, envtex and G-buffer gradients under
+    torch.cuda.set_sync_debug_mode("error"): a host sync raises (after one
+    warm run, which makes the kept constants)."""
+    with eager_routes():
+        for name in ("slice", "envtex", "g_buffer"):
+            scene, _, leaves_of, fn = paths[name]
+            img_grads(lambda: fn(scene, SEED), leaves_of(scene))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img_grads(lambda: fn(scene, SEED), leaves_of(scene))
+            except RuntimeError as e:
+                print(f"FAIL: [graph] the eager {name} gradient synchronises "
+                      f"the host: {e}", flush=True)
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"[graph] sync check: the eager {name} gradient ran under "
+                  "sync debug mode \"error\" with no synchronising call",
+                  flush=True)
+
+
+def graph_vs_eager(name, path, smi_line):
+    """One path graphed against eager at seeds 11 and 12 and after an
+    in-place update of the first leaf (the vertices, x 1.01): the image
+    within GRAPH_IMAGE_ATOL on every pixel, each leaf's gradient within
+    GRAPH_L2_MAX relative L2, the eager-vs-eager value beside it (the
+    index backward's atomics); the first call captures one forward and
+    one backward graph and a later call captures nothing.  Then fwd+bwd,
+    graphed and eager (median of 3 each), while the key is cached.
+    Returns the row."""
+    scene, names, leaves_of, fn = path
+    row = {"captures": [], "capture_s": None, "max_image_diff": 0.0,
+           "max_rel_l2": 0.0}
+    keep = leaves_of(scene)[0].detach().clone()
+    steps = (("seed 11", SEED), ("seed 12", SEED + 1),
+             ("leaf update", SEED + 1))
+    if name == "remat":
+        steps = steps[:1]
+    ee = None
+    for step, seed in steps:
+        if step == "leaf update":
+            with torch.no_grad():
+                leaves_of(scene)[0].mul_(1.01)
+        before = dict(graphs.CAPTURES)
+        g_img, g_grads = img_grads(lambda: fn(scene, seed), leaves_of(scene))
+        torch.cuda.synchronize()
+        got = {k: graphs.CAPTURES[k] - before[k] for k in before}
+        row["captures"].append(got)
+        if row["capture_s"] is None:
+            row["capture_s"] = {k: graphs.LAST_CAPTURE[k]["seconds"]
+                                for k in ("forward", "backward")}
+            row["nodes"] = {k: graphs.LAST_CAPTURE[k]["launches"]
+                            for k in ("forward", "backward")}
+        with eager_routes():
+            e_img, e_grads = img_grads(lambda: fn(scene, seed),
+                                       leaves_of(scene))
+            if ee is None:
+                _, e2 = img_grads(lambda: fn(scene, seed), leaves_of(scene))
+                ee = [rel_l2(a, b) for a, b in zip(e2, e_grads)]
+        diff = float((g_img - e_img).abs().max())
+        l2 = [rel_l2(a, b) for a, b in zip(g_grads, e_grads)]
+        row["max_image_diff"] = max(row["max_image_diff"], diff)
+        row["max_rel_l2"] = max(row["max_rel_l2"], max(l2))
+        print(f"[graph] {name} {step}: captures {got}; image max |graphed - "
+              f"eager| {diff:.3e}; gradient relative L2 graphed vs eager "
+              + ", ".join(f"{n} {x:.3e} (eager vs eager {y:.3e})"
+                          for n, x, y in zip(names, l2, ee)), flush=True)
+        _check(diff <= GRAPH_IMAGE_ATOL,
+               f"{name} {step}: graphed image off eager by {diff:.3e}")
+        _check(max(l2) <= GRAPH_L2_MAX,
+               f"{name} {step}: graphed gradient off eager ({max(l2):.3e})")
+        _check(all(bool(torch.isfinite(g).all()) for g in g_grads),
+               f"{name} {step}: non-finite graphed gradient")
+    with torch.no_grad():
+        leaves_of(scene)[0].copy_(keep)
+    _check(row["captures"][0] == {"forward": 1, "backward": 1},
+           f"{name}: the first call captured {row['captures'][0]}")
+    _check(all(c == {"forward": 0, "backward": 0}
+               for c in row["captures"][1:]),
+           f"{name}: a later call captured again: {row['captures']}")
+    print(f"[graph] {name}: capture seconds (warm-up included) "
+          f"{row['capture_s']}; kernel nodes {row['nodes']}", flush=True)
+    run = lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene))
+    row["graphed_ms"], g_walls = _wall_ms(run)
+    with eager_routes():
+        row["eager_ms"], e_walls = _wall_ms(run)
+    print(f"[graph] {name} fwd+bwd: eager median {row['eager_ms']:.3f} ms "
+          f"(all: {_walls(e_walls)}), graphed median {row['graphed_ms']:.3f} "
+          f"ms (all: {_walls(g_walls)}); {smi_line}", flush=True)
+    return row
+
+
+def graph_batches(path):
+    """Both kernels against their plain versions on every batch of one
+    eager gradient of `path`, through the device-count interface: no lane
+    may differ.  Returns (batches, lanes, lanes off)."""
+    scene, _, leaves_of, fn = path
+    with eager_routes():
+        cap = capture_launches(
+            lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene)))
+    fs = rtt.flatten_scene(scene)
+    lanes = off = 0
+    with torch.no_grad():
+        for kind, rb in cap:
+            if kind == "closest_hit":
+                kt, ki = ic.closest_hit(fs.layout, rb)
+                pt, pi = plain.closest_plain(fs.layout.Tc, rb)
+                bad = int(((ki.to(torch.int64) != pi)
+                           | ((kt != pt) & torch.isfinite(pt))).sum())
+            else:
+                bad = int(((ic.any_hit(fs.layout, rb) != 0)
+                           != plain.anyhit_plain(fs.layout.Tc, rb)[0]).sum())
+            lanes += rb.n
+            off += bad
+    print(f"[graph] kernels vs plain through the device count: {len(cap)} "
+          f"captured batches, {lanes} lanes, {off} lanes off", flush=True)
+    _check(off == 0, f"{off} lanes off the plain versions")
+    return len(cap), lanes, off
+
+
+def phase_graph(scene, opts, smi_line):
+    """render and render_image replayed as cached CUDA graphs against the
+    eager functions; see the module doc.  Returns the row for the kernels
+    line."""
+    lap = _Lap(time.perf_counter())
+    dev = scene.camera.device
+    graphs.clear()
+    torch.cuda.empty_cache()
+    env = make_envtex_scene(device=dev)
+    aov = make_envtex_scene(generic=16, device=dev)
+    paths = graph_paths(scene, opts, env, aov)
+    sync_check(paths)
+    lap("graph: sync check")
+
+    # The main path through the graphs: the counts zeroed before the first
+    # call of the slice's gradient, read after (its capture launches).
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    rows = {"slice": graph_vs_eager("slice", paths["slice"], smi_line)}
+    main = dict(ic.LAUNCHES)
+    nodes = {k: sum(rows["slice"]["nodes"][g][k]
+                    for g in ("forward", "backward")) for k in GRAPH_NODES}
+    print(f"[graph] slice main path (capture included) launches {main}; "
+          f"kernel nodes per graphed gradient {nodes}, predicted "
+          f"{GRAPH_NODES}", flush=True)
+    _check(all(v > 0 for v in main.values()),
+           f"a kernel did not launch on the graphed main path: {main}")
+    _check(nodes == GRAPH_NODES, f"kernel nodes {nodes}, want {GRAPH_NODES}")
+    s, _, leaves_of, fn = paths["slice"]
+    prof = profile_run("one graphed slice gradient", lambda: img_grads(
+        lambda: fn(s, SEED), leaves_of(s)), top=6)
+    if prof is not None:
+        replay_nodes = {k: sum(c for n, c in prof["by_name"].items()
+                               if f"{k}_kernel" in n) for k in GRAPH_NODES}
+        rows["slice"].update(busy_ms=prof["busy_ms"], idle=prof["idle"],
+                             cuda_kernels=prof["kernels"],
+                             replay_nodes=replay_nodes)
+        print(f"[graph] kernel nodes in one graphed gradient's replays "
+              f"(profiler): {replay_nodes}", flush=True)
+        _check(replay_nodes == GRAPH_NODES,
+               f"profiled kernel nodes {replay_nodes}, want {GRAPH_NODES}")
+    for name in ("envtex", "g_buffer", "remat"):
+        rows[name] = graph_vs_eager(name, paths[name], smi_line)
+    lap("graph: graphed vs eager gradients, times")
+
+    # Memory: the peak of one slice gradient, eager and graphed (a
+    # replay), and what the graph pools of the four cached keys hold.
+    run = lambda: img_grads(lambda: fn(s, SEED), leaves_of(s))
+    mem = {}
+    for label in ("eager", "graphed"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if label == "eager":
+            with eager_routes():
+                run()
+        else:
+            run()
+        torch.cuda.synchronize()
+        mem[f"{label}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    graphs.clear()
+    torch.cuda.empty_cache()
+    mem["cache_holds_mib"] = (held - torch.cuda.memory_reserved()) / 2**20
+    print(f"[graph] slice gradient peak memory: eager "
+          f"{mem['eager_peak_mib']:.1f} MiB, graphed replay "
+          f"{mem['graphed_peak_mib']:.1f} MiB; the graph cache's "
+          f"{len(paths)} gradient keys ({', '.join(paths)}) hold "
+          f"{mem['cache_holds_mib']:.1f} MiB of reserved memory", flush=True)
+    lap("graph: memory")
+
+    # Forward only: render_image's graph.
+    fwd = {"max_image_diff": 0.0}
+    keep = scene.shapes[0].vertices.detach().clone()
+    with torch.no_grad():
+        for step, seed in (("seed 11", SEED), ("seed 12", SEED + 1),
+                           ("leaf update", SEED + 1)):
+            if step == "leaf update":
+                scene.shapes[0].vertices.mul_(1.01)
+            g = rtt.render_image(scene, opts, seed=seed)
+            with eager_routes():
+                e = rtt.render_image(scene, opts, seed=seed)
+            diff = float((g - e).abs().max())
+            fwd["max_image_diff"] = max(fwd["max_image_diff"], diff)
+            print(f"[graph] render_image {step}: max |graphed - eager| "
+                  f"{diff:.3e}", flush=True)
+            _check(diff <= GRAPH_IMAGE_ATOL,
+                   f"render_image {step}: graphed off eager by {diff:.3e}")
+        scene.shapes[0].vertices.copy_(keep)
+        fwd["graphed_ms"], g_walls = _wall_ms(
+            lambda: rtt.render_image(scene, opts, seed=SEED), 5)
+        with eager_routes():
+            fwd["eager_ms"], e_walls = _wall_ms(
+                lambda: rtt.render_image(scene, opts, seed=SEED), 5)
+    print(f"[graph] forward 256x256 4spp: eager median {fwd['eager_ms']:.3f} "
+          f"ms (all: {_walls(e_walls)}), graphed median "
+          f"{fwd['graphed_ms']:.3f} ms (all: {_walls(g_walls)}); "
+          f"{smi_line}", flush=True)
+    lap("graph: render_image")
+
+    # The front end's five Adam steps, graphed against eager.
+    fe = frontend_slice_scene()
+    with eager_routes():
+        e_losses, e_ms = frontend_adam(fe, dev, "graph eager", smi_line)
+    g_losses, g_ms = frontend_adam(fe, dev, "graph graphed", smi_line)
+    print(f"[graph] front end Adam losses eager {e_losses}, graphed "
+          f"{g_losses}; step ms eager {_walls(e_ms)}, graphed "
+          f"{_walls(g_ms)}", flush=True)
+    _check(np.allclose(g_losses, e_losses, rtol=GRAPH_LOSS_RTOL, atol=0.0),
+           "graphed Adam losses differ from eager")
+    del fe
+    lap("graph: front end Adam")
+
+    batches = graph_batches(paths["slice"])
+    lap("graph: kernels vs plain")
+
+    # The device-bound contrast: 1024x1024 x 4 spp.
+    (res, spp) = GRAPH_BIG
+    big = make_slice_scene(res=res, device=dev)
+    o = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+    run = lambda: img_grads(lambda: rtt.render(big, o, seed=SEED),
+                            slice_leaves(big))
+    with eager_routes():
+        big_e, big_e_walls = _wall_ms(run, 1)
+    first, _ = _wall_ms(run, 1)
+    big_g, big_g_walls = _wall_ms(run, 1)
+    print(f"[graph] {res[0]}x{res[1]} x {spp} spp slice gradient: eager "
+          f"{big_e:.3f} ms, graphed {big_g:.3f} ms (first call, capture "
+          f"included: {first:.3f} ms); {smi_line}", flush=True)
+    del big
+    graphs.clear()
+    torch.cuda.empty_cache()
+    lap("graph: 1024x1024")
+    return {"paths": rows, "forward": fwd, "memory": mem,
+            "batches": batches, "adam_losses": {"eager": e_losses,
+                                                "graphed": g_losses},
+            "big": {"cell": f"{res[0]}x{res[1]} x {spp} spp",
+                    "eager_ms": big_e, "graphed_ms": big_g,
+                    "first_call_ms": first}}
 
 
 # ----------------------------------------------------------------------
@@ -2396,6 +2796,52 @@ def phase_memory(smi_line):
     return rows
 
 
+GRAPH_MEMORY_CELLS = (((256, 256), 4), ((1024, 1024), 16))
+
+
+def graphed_memory(smi_line):
+    """The slice's gradient through the graph cache (rtt.render) at
+    GRAPH_MEMORY_CELLS, live: the first call's peak (the eager warm-up,
+    then the capture into the graphs' private pools) and wall, the
+    reserved memory the cached graphs keep after it, and a replay's peak
+    and wall.  The 1024x1024 x 32 spp cell stays eager: a graph pool
+    beside the warm-up's blocks would not fit the card."""
+    rows = []
+    for res, spp in GRAPH_MEMORY_CELLS:
+        scene = make_slice_scene(res=res, device="cuda")
+        o = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+        graphs.clear()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        row = {"res": list(res), "spp": spp}
+        for call in ("first", "replay"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g = gradient(scene, o)
+            torch.cuda.synchronize()
+            row[f"{call}_ms"] = (time.perf_counter() - t0) * 1e3
+            row[f"{call}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            _check(all(bool(torch.isfinite(x).all()) for x in g),
+                   f"graphed {res} {spp}spp: non-finite gradient")
+            del g
+            torch.cuda.empty_cache()
+            if call == "first":
+                row["cache_holds_mib"] = (torch.cuda.memory_reserved()
+                                          - base) / 2**20
+        rows.append(row)
+        print(f"[memory] {res[0]}x{res[1]} {spp}spp graphed: first call "
+              f"(warm-up and capture) peak {row['first_peak_mib']:.1f} MiB, "
+              f"{row['first_ms']:.1f} ms; the cached graphs keep "
+              f"{row['cache_holds_mib']:.1f} MiB reserved; a replay peaks at "
+              f"{row['replay_peak_mib']:.1f} MiB, {row['replay_ms']:.1f} ms; "
+              f"{smi_line}", flush=True)
+        graphs.clear()
+        del scene
+        torch.cuda.empty_cache()
+    print(json.dumps({"memory_graphed": rows}), flush=True)
+    return rows
+
+
 def memory_main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2403,7 +2849,9 @@ def memory_main():
         return 1
     phase_build()
     smi_line = phase_device()
-    phase_memory(smi_line)
+    with eager_routes():
+        phase_memory(smi_line)
+    graphed_memory(smi_line)
     print(smi_line)
     return 0
 
@@ -2476,7 +2924,8 @@ def cards_main(world):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    rows = phase_cards(world, smi.stdout.strip().splitlines())
+    with eager_routes():
+        rows = phase_cards(world, smi.stdout.strip().splitlines())
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"cards": rows}))
     print(smi_line)
@@ -2519,27 +2968,30 @@ def main():
     opts = rtt.RenderOptions(num_samples=4, max_bounces=1)
     lap = _Lap(t_start)
     lap("build, device, kernels")
-    launches = phase_render(scene, opts)
-    lap("render")
-    fwd_ms, per = phase_times(fs, scene, opts)
-    lap("times")
-    sets = phase_sets(fs, scene, dev)
-    lap("sets")
-    grad_launches, grad_rows, grad_ms = phase_grad(scene, opts, smi_line)
-    lap("grad")
-    env_fwd, env_grad, env_shadow, env_fwd_ms, env_grad_ms = phase_envtex(
-        opts, smi_line)
-    lap("envtex")
-    aov_rows, aov_big = phase_aov(smi_line)
-    lap("aov")
-    files_row, loaded, loaded_cpu = phase_files(opts, smi_line)
-    lap("files")
-    cam_rows = phase_cameras(loaded, loaded_cpu, opts, smi_line)
-    lap("cameras")
-    fe_rows = phase_frontend(scene, opts, smi_line)
-    lap("frontend")
-    shard_row = phase_sharded(scene, opts, smi_line)
-    lap("sharded")
+    with eager_routes():  # the phases of the eager render
+        launches = phase_render(scene, opts)
+        lap("render")
+        fwd_ms, per = phase_times(fs, scene, opts)
+        lap("times")
+        sets = phase_sets(fs, scene, dev)
+        lap("sets")
+        grad_launches, grad_rows, grad_ms = phase_grad(scene, opts, smi_line)
+        lap("grad")
+        env_fwd, env_grad, env_shadow, env_fwd_ms, env_grad_ms = (
+            phase_envtex(opts, smi_line))
+        lap("envtex")
+        aov_rows, aov_big = phase_aov(smi_line)
+        lap("aov")
+        files_row, loaded, loaded_cpu = phase_files(opts, smi_line)
+        lap("files")
+        cam_rows = phase_cameras(loaded, loaded_cpu, opts, smi_line)
+        lap("cameras")
+        fe_rows = phase_frontend(scene, opts, smi_line)
+        lap("frontend")
+        shard_row = phase_sharded(scene, opts, smi_line)
+        lap("sharded")
+    graph_row = phase_graph(scene, opts, smi_line)
+    lap("graph")
 
     kernels = []
     for kind, rows in per.items():
@@ -2598,6 +3050,19 @@ def main():
             **{k: shard_row[k] for k in (
                 "peak_mib_per_rank", "peak_mib_one_process",
                 "gradient_ms_one_process", "gradient_ms_two_ranks")}}
+        kernels[-1]["graph"] = {
+            "nodes_per_gradient": GRAPH_NODES[kind],
+            "nodes_per_forward": graph_row["paths"]["slice"]["nodes"][
+                "forward"][kind],
+            "replay_nodes_profiled": graph_row["paths"]["slice"].get(
+                "replay_nodes", {}).get(kind),
+            "gradient_ms": {name: {k: row.get(k) for k in (
+                "eager_ms", "graphed_ms", "capture_s", "max_image_diff",
+                "max_rel_l2")} for name, row in graph_row["paths"].items()},
+            "forward_ms": {k: graph_row["forward"][k]
+                           for k in ("eager_ms", "graphed_ms")},
+            "idle": graph_row["paths"]["slice"].get("idle"),
+            "memory": graph_row["memory"], "big": graph_row["big"]}
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {
                 k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}

@@ -24,7 +24,9 @@ timing helpers (`set_device`, `set_print_timing`, `timed`,
 (`redner_tpu_torch.parallel.sharding`, one process per card over
 torch.distributed); `RenderOptions(split_shadow_sweep=False)` and the
 `bruteforce` and `cluster` engines are accepted and run the split sweep
-and the plain queries.  torch.autograd through
+and the plain queries; the compiled render: on a card, `render` and
+`render_image` replay cached CUDA graphs (`graphs.py`), and `make_render`
+gives the eager function.  torch.autograd through
 `render_image` alone gives only the continuous gradients.
 
 The pyredner-style front end sits on top: `redner_tpu_torch.frontend`
@@ -65,7 +67,8 @@ from redner_tpu_torch.meshops import load_obj_fast, weld_mesh  # noqa: E402
 from redner_tpu_torch.object import Object, scene_from_objects  # noqa: E402
 from redner_tpu_torch.render import RenderOptions, render_image  # noqa: E402
 from redner_tpu_torch.render_grad import (  # noqa: E402
-    get_use_correlated_random_number, render, set_use_correlated_random_number)
+    get_use_correlated_random_number, make_render, render,
+    set_use_correlated_random_number)
 from redner_tpu_torch.render_utils import (AmbientLight,  # noqa: E402
                                            DeferredLight,
                                            DirectionalLight, PointLight,
@@ -133,6 +136,7 @@ __all__ = [
     "imread", "imwrite", "linear_to_srgb", "load_mitsuba", "load_obj",
     "load_obj_fast", "load_scene", "load_serialized", "load_state_dict",
     "make_area_light", "make_camera", "make_environment_map",
+    "make_render",
     "make_material", "make_scene", "make_shape", "make_texture",
     "profile_trace", "render", "render_albedo", "render_deferred",
     "render_g_buffer", "render_generic", "render_image",

@@ -27,6 +27,7 @@ import torch
 
 from redner_tpu_torch.core import transform as xf
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.core.types import Ray, RayDifferential
 from redner_tpu_torch.device import resolve_device
 
@@ -151,8 +152,14 @@ def camera_to_world(camera: Camera) -> torch.Tensor:
     return camera.cam_to_world
 
 
+def _inv(m):
+    """torch.linalg.inv without its singularity check, which reads the
+    factorization's status on the host (a sync on a card)."""
+    return torch.linalg.inv_ex(m).inverse
+
+
 def world_to_cam(camera: Camera) -> torch.Tensor:
-    return torch.linalg.inv(camera_to_world(camera))
+    return _inv(camera_to_world(camera))
 
 
 # ------------------------------------------------------------------
@@ -253,9 +260,9 @@ def sample_primary(camera: Camera, screen_pos: torch.Tensor) -> Ray:
             torch.zeros(batch, dtype=dtype, device=dev),
         ], dim=-1)
         org = xf.xfm_point(c2w, xf.mat3_apply(
-            torch.linalg.inv(camera.intrinsic_mat), pt))
+            _inv(camera.intrinsic_mat), pt))
         d = vm.normalize(xf.xfm_vector(
-            c2w, torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)))
+            c2w, const((0.0, 0.0, 1.0), dtype, dev)))
         return Ray.make(org, d.expand(org.shape))
     org = xf.xfm_point(c2w, zero3).expand(batch + (3,))
     if ct == CameraType.perspective:
@@ -265,7 +272,7 @@ def sample_primary(camera: Camera, screen_pos: torch.Tensor) -> Ray:
             torch.ones(batch, dtype=dtype, device=dev),
         ], dim=-1)
         local_dir = vm.normalize(xf.mat3_apply(
-            torch.linalg.inv(camera.intrinsic_mat), pt))
+            _inv(camera.intrinsic_mat), pt))
         return Ray.make(org, vm.normalize(xf.xfm_vector(c2w, local_dir)))
     if ct == CameraType.fisheye:
         x = 2.0 * (pos[..., 0] - 0.5)
@@ -326,8 +333,8 @@ def sample_primary_rays(camera: Camera, jitter: torch.Tensor,
     )
     ray = sample_primary(camera, screen_pos)
     delta = 1e-3
-    ddx = torch.tensor([delta, 0.0], dtype=dtype, device=jitter.device)
-    ddy = torch.tensor([0.0, delta], dtype=dtype, device=jitter.device)
+    ddx = const((delta, 0.0), dtype, jitter.device)
+    ddy = const((0.0, delta), dtype, jitter.device)
     ray_dx = sample_primary(camera, screen_pos + ddx)
     ray_dy = sample_primary(camera, screen_pos + ddy)
     psx = 0.5 / camera.width

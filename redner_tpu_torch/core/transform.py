@@ -13,6 +13,7 @@ import math
 import torch
 
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.consts import const
 
 
 def xfm_point(m, p):
@@ -52,8 +53,7 @@ def look_at_matrix(pos, look, up):
     right = vm.normalize(vm.cross(d, vm.normalize(up)))
     new_up = vm.normalize(vm.cross(right, d))
     m = torch.stack([right, new_up, d, pos], dim=-1)  # (3, 4)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=m.dtype,
-                          device=m.device)
+    bottom = const(((0.0, 0.0, 0.0, 1.0),), m.dtype, m.device)
     return torch.cat([m, bottom], dim=0)
 
 
@@ -91,8 +91,7 @@ def gen_rotate_matrix(angles):
     ])
     r = rz @ ry @ rx
     top = torch.cat([r, torch.zeros_like(r[:, :1])], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=r.dtype,
-                          device=r.device)
+    bottom = const(((0.0, 0.0, 0.0, 1.0),), r.dtype, r.device)
     return torch.cat([top, bottom], dim=0)
 
 

@@ -26,10 +26,14 @@ class Ray:
     def make(cls, org, dir, tmin=None, tmax=None):  # noqa: A002
         batch = org.shape[:-1]
         kw = dict(dtype=org.dtype, device=org.device)
-        tmin = (torch.zeros(batch, **kw) if tmin is None
-                else torch.as_tensor(tmin, **kw).expand(batch))
-        tmax = (torch.full(batch, float("inf"), **kw) if tmax is None
-                else torch.as_tensor(tmax, **kw).expand(batch))
+        def fill(x, default):
+            x = default if x is None else x
+            if torch.is_tensor(x):
+                return x.to(**kw).expand(batch)
+            return torch.full(batch, float(x), **kw)
+
+        tmin = fill(tmin, 0.0)
+        tmax = fill(tmax, float("inf"))
         return cls(org=org, dir=dir.expand(org.shape), tmin=tmin, tmax=tmax)
 
 

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import torch
 
+from redner_tpu_torch.core.consts import const
+
 
 def _like(x, ref):
-    """A python scalar as a 0-d tensor on ref's dtype/device."""
-    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    """A python scalar as a kept 0-d tensor on ref's dtype/device."""
+    return const(x, ref.dtype, ref.device)
 
 
 def dot(a, b):
@@ -141,8 +143,8 @@ def coordinate_system(n):
     b = -n0 * n1 * a
     x = torch.stack([1.0 - n0 * n0 * a, b, -n0], dim=-1)
     y = torch.stack([b, 1.0 - n1 * n1 * a, -n1], dim=-1)
-    x_d = torch.tensor([0.0, -1.0, 0.0], dtype=n.dtype, device=n.device)
-    y_d = torch.tensor([-1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    x_d = const((0.0, -1.0, 0.0), n.dtype, n.device)
+    y_d = const((-1.0, 0.0, 0.0), n.dtype, n.device)
     x = torch.where(degen[..., None], x_d, x)
     y = torch.where(degen[..., None], y_d, y)
     return x, y

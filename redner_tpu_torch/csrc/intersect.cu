@@ -29,6 +29,10 @@
 //     sized by the occupancy calculator fills every SM; each warp claims
 //     items from a global counter (zeroed by the wrapper), so no tile's
 //     chunk list sets the launch time;
+//   * the list's length never reaches the host: the launch is sized by the
+//     list's capacity, and the kernels read its count from device memory,
+//     so a launch can be captured in a CUDA graph and replayed on other
+//     rays (a count of 0 is a launch that does no work);
 //   * one warp holds a whole 128-ray tile, 4 rays a thread in registers:
 //     each staged triangle is five 16-byte broadcast reads from shared
 //     memory that feed 4 tests, and the 4 x 4 independent FMA chains hide
@@ -351,8 +355,9 @@ template <class Item, class Out>
 __device__ __forceinline__ void run_items(
     float4 (*ring)[PIECE_F4], const float* __restrict__ R,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
-    const float4* __restrict__ Tp, const int2* __restrict__ pairs, int nitems,
-    int ntri, int* counter, Out* out) {
+    const float4* __restrict__ Tp, const int2* __restrict__ pairs,
+    const int* __restrict__ count, int ntri, int* counter, Out* out) {
+  const int nitems = __ldg(count) * ITEMS_PER_PAIR;
   const int lane = threadIdx.x & 31;
   int cur = __shfl_sync(FULL, claim(counter, lane), 0);
   if (cur < nitems) stage(ring[0], Tp, item_of(pairs, cur).y, lane);
@@ -391,25 +396,27 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 closest_hit_kernel(const float* __restrict__ R, const float* __restrict__ tmin,
                    const float* __restrict__ tmax,
                    const float4* __restrict__ Tp,
-                   const int2* __restrict__ pairs, int nitems, int ntri,
-                   int* counter, long long* keys) {
+                   const int2* __restrict__ pairs,
+                   const int* __restrict__ count, int ntri, int* counter,
+                   long long* keys) {
   __shared__ __align__(16) float4 ring[WARPS][2][PIECE_F4];
   run_items<ClosestItem>(ring[threadIdx.x >> 5], R, tmin, tmax, Tp, pairs,
-                         nitems, ntri, counter, keys);
+                         count, ntri, counter, keys);
 }
 
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 any_hit_kernel(const float* __restrict__ R, const float* __restrict__ tmin,
                const float* __restrict__ tmax, const float4* __restrict__ Tp,
-               const int2* __restrict__ pairs, int nitems, int ntri,
-               int* counter, int* blocked) {
+               const int2* __restrict__ pairs, const int* __restrict__ count,
+               int ntri, int* counter, int* blocked) {
   __shared__ __align__(16) float4 ring[WARPS][2][PIECE_F4];
-  run_items<AnyItem>(ring[threadIdx.x >> 5], R, tmin, tmax, Tp, pairs, nitems,
+  run_items<AnyItem>(ring[threadIdx.x >> 5], R, tmin, tmax, Tp, pairs, count,
                      ntri, counter, blocked);
 }
 
 // Blocks of a persistent grid: every SM filled at the occupancy the
-// compiled kernel allows, and no more blocks than the items need.
+// compiled kernel allows, and no more blocks than a full list's items
+// (the capacity's) need.
 template <class Kernel>
 cudaError_t grid_for(Kernel kernel, int nitems, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -428,36 +435,40 @@ cudaError_t grid_for(Kernel kernel, int nitems, int* grid) {
 
 // C interface, bound with ctypes by redner_tpu_torch/ops/intersect_cuda.py.
 // R (ntile*128, 10), tmin/tmax (ntile*128,), Tp (nchunks*512, 20) f32;
-// pairs (npairs, 2) int32 (tile, chunk); ntri real triangles (sorted slots
-// at or above it are padding); counter one int32 set to 0.  Outputs: keys
-// (ntile*128,) int64 filled with "no hit" (closest), or blocked
-// (ntile*128,) int32 filled with 0 (any hit).  Launches on `stream`,
-// allocates nothing, returns the first cudaError_t met.
+// pairs (capacity, 2) int32 (tile, chunk), of which the first *count rows
+// (count: one int32 in device memory, at most capacity) are the work;
+// ntri real triangles (sorted slots at or above it are padding); counter
+// one int32 set to 0.  Outputs: keys (ntile*128,) int64 filled with "no
+// hit" (closest), or blocked (ntile*128,) int32 filled with 0 (any hit).
+// Launches on `stream` (nothing for a capacity of 0), allocates nothing,
+// never reads *count on the host, returns the first cudaError_t met.
 extern "C" int rt_closest_hit(const float* R, const float* tmin,
                               const float* tmax, const float* Tp,
-                              const int* pairs, int npairs, int ntri,
-                              int* counter, long long* keys, void* stream) {
-  const int nitems = npairs * ITEMS_PER_PAIR;
-  if (nitems <= 0) return 0;
+                              const int* pairs, int capacity, const int* count,
+                              int ntri, int* counter, long long* keys,
+                              void* stream) {
+  if (capacity <= 0) return 0;
   int grid = 0;
-  const cudaError_t e = grid_for(closest_hit_kernel, nitems, &grid);
+  const cudaError_t e =
+      grid_for(closest_hit_kernel, capacity * ITEMS_PER_PAIR, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   closest_hit_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       R, tmin, tmax, reinterpret_cast<const float4*>(Tp),
-      reinterpret_cast<const int2*>(pairs), nitems, ntri, counter, keys);
+      reinterpret_cast<const int2*>(pairs), count, ntri, counter, keys);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt_any_hit(const float* R, const float* tmin, const float* tmax,
-                          const float* Tp, const int* pairs, int npairs,
-                          int ntri, int* counter, int* blocked, void* stream) {
-  const int nitems = npairs * ITEMS_PER_PAIR;
-  if (nitems <= 0) return 0;
+                          const float* Tp, const int* pairs, int capacity,
+                          const int* count, int ntri, int* counter,
+                          int* blocked, void* stream) {
+  if (capacity <= 0) return 0;
   int grid = 0;
-  const cudaError_t e = grid_for(any_hit_kernel, nitems, &grid);
+  const cudaError_t e =
+      grid_for(any_hit_kernel, capacity * ITEMS_PER_PAIR, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   any_hit_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       R, tmin, tmax, reinterpret_cast<const float4*>(Tp),
-      reinterpret_cast<const int2*>(pairs), nitems, ntri, counter, blocked);
+      reinterpret_cast<const int2*>(pairs), count, ntri, counter, blocked);
   return static_cast<int>(cudaGetLastError());
 }

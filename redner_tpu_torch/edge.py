@@ -43,6 +43,7 @@ from redner_tpu_torch.camera import (CameraType, project, sample_primary,
                                      world_to_cam)
 from redner_tpu_torch.core import transform as xf
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.core.shardutil import (all_reduce_sum, lane_block,
                                              shard_count, shard_rank)
 from redner_tpu_torch.core.types import Ray, RayDifferential
@@ -329,8 +330,8 @@ def _clip_segment_screen(p0, p1, valid0, valid1, width, height):
 def project_pixels(camera, p_world):
     """World -> screen in pixel units (x right, y down), differentiable."""
     screen, valid, _ = project(camera, p_world)
-    scale = torch.tensor([camera.width, camera.height], dtype=screen.dtype,
-                         device=screen.device)
+    scale = const((float(camera.width), float(camera.height)), screen.dtype,
+                  screen.device)
     return screen * scale, valid
 
 
@@ -361,7 +362,7 @@ def _sample_primary_edges(scene, flatten_scene_fn, render_sample_fn, options,
     top, left, bottom, right = camera.viewport_or_full
     width, height = float(camera.width), float(camera.height)
     N = num_edge_samples
-    edge_seed = (int(seed) + sampler_mod.EDGE_SEED_OFFSET) & _U32
+    edge_seed = (seed + sampler_mod.EDGE_SEED_OFFSET) & _U32
     # A 3D line images to a curve (the film arc) under these cameras.
     nonlinear = (camera.camera_type in (CameraType.fisheye,
                                         CameraType.panorama)
@@ -435,7 +436,7 @@ def _sample_primary_edges(scene, flatten_scene_fn, render_sample_fn, options,
         # Order the samples by a screen-position Morton key (the chord-lerp
         # preview), so every ray tile covers a compact screen region and the
         # ray queries can skip their own sort (rays_coherent=True below).
-        wh = torch.tensor([width, height], dtype=dtype, device=dev)
+        wh = const((width, height), dtype, dev)
         prev = torch.minimum(vm.maximum(torch.nan_to_num(
             (1.0 - tt)[:, None] * p0_pix[sel] + tt[:, None] * p1_pix[sel]),
             0.0), wh)

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.core.types import Intersection
 from redner_tpu_torch.ops.intersect import (CHUNK, TILE_N, anyhit_plain,
                                             closest_plain, ray_features,
@@ -110,9 +111,10 @@ def _lib():
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # (R, tmin, tmax, Tp, pairs, npairs, ntri, counter, out, stream)
+        # (R, tmin, tmax, Tp, pairs, capacity, count, ntri, counter, out,
+        #  stream)
         for fn in (lib.rt_closest_hit, lib.rt_any_hit):
-            fn.argtypes = [p, p, p, p, p, i, i, p, p, p]
+            fn.argtypes = [p, p, p, p, p, i, p, i, p, p, p]
             fn.restype = i
         _lib_handle = lib
     return _lib_handle
@@ -162,8 +164,8 @@ PACK = len(PACK_ROWS) + 1
 
 def pack_coefficients(T):
     """(F', 10, 4) coefficient blocks -> (F', PACK) kernel rows."""
-    k = torch.tensor([r[0] for r in PACK_ROWS], device=T.device)
-    g = torch.tensor([r[1] for r in PACK_ROWS], device=T.device)
+    k = const([r[0] for r in PACK_ROWS], torch.int64, T.device)
+    g = const([r[1] for r in PACK_ROWS], torch.int64, T.device)
     return torch.cat([T[:, k, g], torch.zeros_like(T[:, :1, 0])], dim=1)
 
 
@@ -240,17 +242,26 @@ def _tile_chunk_mask(org, d, tmin, tmax, live, ntile, cl_min, cl_max,
 
 
 def _active_lists(mask):
-    """(ntile, nchunks) mask -> the kernels' work list: (npairs, 2) int32
-    (tile, chunk) active pairs, rank-major (every tile's first active chunk,
-    then every tile's second, ...; tiles ascending within a rank), so each
-    tile's chunks come in increasing order.  The pairs of the Pallas flat
-    step table (pallas_intersect.py:458), which the kernels run in parallel
-    instead of in sequence; the any-hit kernel's settling wants a tile's
-    early chunks claimed first, the closest-hit merge is order-free."""
-    nz = torch.nonzero(mask)  # tile-major, chunks ascending
-    rank = (torch.cumsum(mask, dim=1) - 1)[nz[:, 0], nz[:, 1]]
-    order = torch.argsort(rank * mask.shape[0] + nz[:, 0])
-    return nz[order].to(torch.int32).contiguous()
+    """(ntile, nchunks) mask -> the kernels' work list, built without a
+    host sync: (pairs, count).  pairs is (ntile * nchunks, 2) int32, its
+    capacity; its first `count` rows ((1,) int32 on the mask's device) are
+    the active (tile, chunk) pairs, rank-major (every tile's first active
+    chunk, then every tile's second, ...; tiles ascending within a rank),
+    so each tile's chunks come in increasing order.  The rows past count
+    are in-range padding the kernels never read.  The pairs of the Pallas
+    flat step table (pallas_intersect.py:458), which the kernels run in
+    parallel instead of in sequence; the any-hit kernel's settling wants a
+    tile's early chunks claimed first, the closest-hit merge is
+    order-free.  An active pair's key is rank * ntile + tile, an inactive
+    one's ntile * nchunks, past every active key."""
+    ntile, nchunks = mask.shape
+    rank = torch.cumsum(mask, dim=1) - 1
+    tile = torch.arange(ntile, device=mask.device)[:, None]
+    key = torch.where(mask, rank * ntile + tile, ntile * nchunks)
+    flat = torch.argsort(key.reshape(-1), stable=True)
+    pairs = torch.stack([flat // nchunks, flat % nchunks], dim=1)
+    count = mask.sum(dtype=torch.int32).reshape(1)
+    return pairs.to(torch.int32).contiguous(), count
 
 
 def _coherence_order(org, d, live):
@@ -277,7 +288,8 @@ class RayBatch:
     tmax: torch.Tensor  # (Npad,) f32; padded and dead lanes hold -1
     live: torch.Tensor  # (n,) bool, kernel order
     mask: torch.Tensor  # (ntile, nchunks) bool activity mask
-    pairs: torch.Tensor  # (npairs, 2) int32 work list (_active_lists)
+    pairs: torch.Tensor  # (ntile * nchunks, 2) int32 work list (_active_lists)
+    count: torch.Tensor  # (1,) int32 on the device: active rows of pairs
     perm: Optional[torch.Tensor]  # (n,) kernel lane -> caller lane
     n: int
     batch: tuple
@@ -324,10 +336,11 @@ def prepare_rays(fs, ray, presorted: bool = False):
     # Dead lanes (zero direction) never hit (det == 0); tmax < tmin marks
     # them settled so any-hit tiles of dead lanes can leave early.
     tmax_k = torch.where(live_p, tmax_p, torch.full_like(tmax_p, -1.0))
+    pairs, count = _active_lists(mask)
     return RayBatch(
         R=ray_features(org_p, d_p).contiguous(),
         tmin=tmin_p.contiguous(), tmax=tmax_k.contiguous(), live=live,
-        mask=mask, pairs=_active_lists(mask), perm=perm,
+        mask=mask, pairs=pairs, count=count, perm=perm,
         n=n, batch=tuple(ray.org.shape[:-1]),
     )
 
@@ -413,9 +426,10 @@ def unpack_hit_key(key):
 
 
 def _launch(fn_name, lay, rb, out):
-    """Checks the inputs and launches one kernel over rb's work list into
-    out: int64 keys filled with NO_HIT (closest hit) or int32 zeros (any
-    hit)."""
+    """Checks the inputs and launches one kernel over rb's work list (its
+    capacity of rows, of which the kernel reads rb.count on the device)
+    into out: int64 keys filled with NO_HIT (closest hit) or int32 zeros
+    (any hit).  A count of 0 is a launch that does no work."""
     npad = rb.R.shape[0]
     out_dtype = torch.int64 if fn_name == "rt_closest_hit" else torch.int32
     for name, x, dtype, shape in (
@@ -423,7 +437,9 @@ def _launch(fn_name, lay, rb, out):
         ("tmin", rb.tmin, torch.float32, (npad,)),
         ("tmax", rb.tmax, torch.float32, (npad,)),
         ("Tp", lay.Tp, torch.float32, (lay.nchunks * CHUNK, PACK)),
-        ("pairs", rb.pairs, torch.int32, (rb.pairs.shape[0], 2)),
+        ("pairs", rb.pairs, torch.int32,
+         ((npad // TILE_N) * lay.nchunks, 2)),
+        ("count", rb.count, torch.int32, (1,)),
         ("out", out, out_dtype, (npad,)),
     ):
         if x.device != rb.R.device:
@@ -431,8 +447,9 @@ def _launch(fn_name, lay, rb, out):
         if x.dtype != dtype or tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if not x.is_contiguous() or x.data_ptr() % (4 if name == "count"
+                                                    else 16):
+            raise ValueError(f"{name} must be contiguous and aligned")
     if npad % TILE_N:
         raise ValueError(f"{npad} rays are not whole tiles of {TILE_N}")
     counter = torch.zeros((1,), dtype=torch.int32, device=rb.R.device)
@@ -441,7 +458,8 @@ def _launch(fn_name, lay, rb, out):
         err = getattr(_lib(), fn_name)(
             rb.R.data_ptr(), rb.tmin.data_ptr(), rb.tmax.data_ptr(),
             lay.Tp.data_ptr(), rb.pairs.data_ptr(), rb.pairs.shape[0],
-            lay.ntri, counter.data_ptr(), out.data_ptr(), stream)
+            rb.count.data_ptr(), lay.ntri, counter.data_ptr(),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"redner_tpu_torch: {fn_name} launch failed "
                            f"(cudaError {err})")
@@ -449,27 +467,26 @@ def _launch(fn_name, lay, rb, out):
 
 def closest_hit(lay, rb):
     """Closest hit per lane of layout lay: (best_t (Npad,) f32, best_i
-    (Npad,) sorted triangle index or -1).  CUDA tensors: the kernel, with
-    no launch when no (tile, chunk) pair is active; CPU: closest_plain."""
+    (Npad,) sorted triangle index or -1).  CUDA tensors: the kernel (one
+    launch, which does no work when no (tile, chunk) pair is active); CPU:
+    closest_plain."""
     if not rb.R.is_cuda:
         return closest_plain(lay.Tc, rb)
     keys = torch.full((rb.R.shape[0],), NO_HIT, dtype=torch.int64,
                       device=rb.R.device)
-    if rb.pairs.shape[0]:
-        _launch("rt_closest_hit", lay, rb, keys)
-        LAUNCHES["closest_hit"] += 1
+    _launch("rt_closest_hit", lay, rb, keys)
+    LAUNCHES["closest_hit"] += 1
     return unpack_hit_key(keys)
 
 
 def any_hit(lay, rb):
     """Any hit per lane of layout lay: blocked (Npad,), nonzero where the
-    segment is blocked.  CUDA tensors: the kernel, with no launch when no
-    (tile, chunk) pair is active; CPU: anyhit_plain."""
+    segment is blocked.  CUDA tensors: the kernel (one launch, which does
+    no work when no (tile, chunk) pair is active); CPU: anyhit_plain."""
     if not rb.R.is_cuda:
         return anyhit_plain(lay.Tc, rb)[0]
     blocked = torch.zeros((rb.R.shape[0],), dtype=torch.int32,
                           device=rb.R.device)
-    if rb.pairs.shape[0]:
-        _launch("rt_any_hit", lay, rb, blocked)
-        LAUNCHES["any_hit"] += 1
+    _launch("rt_any_hit", lay, rb, blocked)
+    LAUNCHES["any_hit"] += 1
     return blocked

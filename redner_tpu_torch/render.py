@@ -5,7 +5,9 @@ Every lane of a fixed (num_lanes,) axis is one pixel-sample; activity is a
 boolean mask.  Discrete quantities (hit ids, occlusion, RNG, CDF picks) are
 detached, so torch autograd of `render_image` gives the continuous
 (AD-only) gradients that `jax.grad(redner_tpu.render_image)` gives.  The
-code runs eagerly: the sample loop and bounce loop are Python loops.
+code runs eagerly: the sample loop and bounce loop are Python loops; on a
+card, render_image and render_grad.render replay them as cached CUDA
+graphs (graphs.py).
 
 The edge-sampling hooks are here too: `trace_radiance` and `render_sample`
 trace externally supplied rays (the edge passes' offset pairs) and, given a
@@ -46,6 +48,7 @@ from redner_tpu_torch import accel
 from redner_tpu_torch.camera import Camera, sample_primary_rays
 from redner_tpu_torch.channels import ChannelInfo, Channels
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.core.shardutil import (gather_lanes, lane_block,
                                              reduce_leaf_grads, shard_count,
                                              shard_rank)
@@ -61,7 +64,7 @@ from redner_tpu_torch.scene import (FlatScene, Scene, _fetch_material_stack,
                                     fetch_local_material, flatten_scene,
                                     gather_face_corner_attribs,
                                     gather_face_vertices, scene_leaves,
-                                    scene_with_leaves)
+                                    scene_tensors, scene_with_leaves)
 
 
 class RenderOptions:
@@ -110,6 +113,14 @@ class RenderOptions:
                 "RenderOptions is frozen after construction; build a new one")
         object.__setattr__(self, name, value)
 
+    def _key(self):
+        """Every field by value (the channel layout by its channels and
+        generic width): equal keys render the same program."""
+        return tuple(sorted(
+            (k, (v.channels, v.max_generic_texture_dimension)
+             if isinstance(v, ChannelInfo) else v)
+            for k, v in vars(self).items() if k != "_frozen"))
+
     def _copy_with(self, **overrides):
         """A new frozen RenderOptions with some fields replaced."""
         new = copy.copy(self)
@@ -136,9 +147,9 @@ def _surface_point_at(fs: FlatScene, isect: Intersection, ray: Ray,
     )
     m3 = isect.valid[..., None]
     kw = dict(dtype=sp.position.dtype, device=sp.position.device)
-    ex = torch.tensor([1.0, 0.0, 0.0], **kw)
-    ey = torch.tensor([0.0, 1.0, 0.0], **kw)
-    ez = torch.tensor([0.0, 0.0, 1.0], **kw)
+    ex = const((1.0, 0.0, 0.0), **kw)
+    ey = const((0.0, 1.0, 0.0), **kw)
+    ez = const((0.0, 0.0, 1.0), **kw)
     z2 = torch.zeros((2,), **kw)
     z3 = torch.zeros((3,), **kw)
     sp = SurfacePoint(
@@ -379,8 +390,7 @@ def _scatter_contribution(fs, lm, sp, wi, min_rough, bsdf_ray, bsdf_isect,
     # Missed rays re-derive a point that can coincide with the shading
     # plane; normalize(~0) has NaN derivatives that leak through where.
     dir_ok = hit & (dist_sq > 1e-20)
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=dirv.dtype,
-                          device=dirv.device)
+    z_axis = const((0.0, 0.0, 1.0), dirv.dtype, dirv.device)
     safe_dirv = torch.where(dir_ok[..., None], dirv, z_axis)
     wo_hit = vm.normalize(safe_dirv)
     pdf_b_hit = bsdf_pdf(lm, sp, wi, wo_hit, min_rough)
@@ -490,7 +500,7 @@ def trace_radiance(
             miss = (torch.sum(ray.dir * ray.dir, dim=-1) > 0) & ~isect.valid
             safe_dir = torch.where(
                 miss[..., None], ray.dir,
-                torch.tensor([0.0, 0.0, 1.0], **kw))
+                const((0.0, 0.0, 1.0), **kw))
             env = envmap_eval(fs.envmap, safe_dir, ray_diff)
             primary_emission = torch.where(miss[..., None], env,
                                            primary_emission)
@@ -603,8 +613,7 @@ def _secondary_edge_term(fs, options, seed, lane_ids, sample_id, bounce,
         _, _, pn = perturb_shading_frame(lm, sp)
         refl = 2.0 * vm.vdot(wi, pn) * pn - wi
         alpha = vm.clip(vm.maximum(lm.roughness, 1e-6), 0.03, 1.0)
-        lum = torch.tensor([0.2126, 0.7152, 0.0722], dtype=alpha.dtype,
-                           device=alpha.device)
+        lum = const((0.2126, 0.7152, 0.0722), alpha.dtype, alpha.device)
         l_spec = torch.sum(lm.specular * lum, dim=-1)
         l_diff = torch.sum(lm.diffuse * lum, dim=-1)
         spec_weight = vm.minimum(
@@ -642,7 +651,8 @@ SAMPLES_LANE_TARGET = 1 << 16
 def swizzle_order(vh: int, vw: int):
     """Static pixel permutation grouping 16x32 screen blocks contiguously, so
     ray tiles have tight frusta and the chunk culling prunes.  Returns
-    (order, inverse) as numpy int64 (order[k] = flat pixel of lane k)."""
+    (order, inverse) as numpy int64 (order[k] = flat pixel of lane k).
+    _swizzle_tensors keeps them on a device."""
     bh, bw = SWIZZLE_BLOCK
     y, x = np.mgrid[0:vh, 0:vw]
     key = (
@@ -654,6 +664,14 @@ def swizzle_order(vh: int, vw: int):
     order = np.argsort(key.ravel(), kind="stable")
     inverse = np.argsort(order, kind="stable")
     return order, inverse
+
+
+def _swizzle_tensors(vh: int, vw: int, device):
+    """swizzle_order's (order, inverse), kept per (vh, vw, device)."""
+    return tuple(
+        const(lambda i=i: swizzle_order(vh, vw)[i], torch.int64, device,
+              key=("swizzle_order", vh, vw, i))
+        for i in (0, 1))
 
 
 def render_sample(
@@ -755,22 +773,48 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
 
     torch.autograd through it gives the continuous gradients;
     render_grad.render adds the edge-sampled visibility terms.
-    engine: None = the kernels on CUDA (plain versions on CPU); "plain"
-    forces the plain ray queries ("bruteforce" and "cluster" are its
-    aliases, see accel.intersect).
+    seed: an int (wrapped to 32 bits) or an integer tensor, taken to the
+    scene's device.  engine: None = the kernels on CUDA (plain versions on
+    CPU); "plain" forces the plain ray queries ("bruteforce" and "cluster"
+    are its aliases, see accel.intersect).
     pixel_sharding (parallel.sharding.pixel_sharding): this rank shades its
     block of the pixels and every rank returns the whole image; under
     autograd each scene leaf's gradient is summed over the ranks, so every
-    rank holds the one-process gradient."""
-    if pixel_sharding is not None and torch.is_grad_enabled():
+    rank holds the one-process gradient.
+
+    On a card scene without pixel_sharding, when autograd is not recording
+    (grad disabled, or no tensor of the scene requires grad), the call
+    replays the cached CUDA graph of its configuration (graphs.py; the JAX
+    package's _render_image_jitted), captured on the first call, and
+    returns a fresh tensor.  Under autograd it runs eagerly."""
+    dev = scene.shapes[0].vertices.device
+    seed = sampler_mod._as_u32(seed, dev)
+    recording = torch.is_grad_enabled() and any(
+        x.requires_grad for x in scene_leaves(scene))
+    if dev.type == "cuda" and pixel_sharding is None and not recording:
+        from redner_tpu_torch import graphs
+
+        prog = graphs.program(
+            "render_image", scene, options, None, engine,
+            lambda s: graphs.Program(s, graph_forward(options, engine)))
+        return prog.forward(scene_tensors(scene), seed)
+    if pixel_sharding is not None and recording:
         leaves = scene_leaves(scene)
         grad_leaves = [x for x in leaves if x.requires_grad]
-        if grad_leaves:
-            wrapped = iter(reduce_leaf_grads(grad_leaves, pixel_sharding))
-            scene = scene_with_leaves(scene, [
-                next(wrapped) if x.requires_grad else x for x in leaves])
+        wrapped = iter(reduce_leaf_grads(grad_leaves, pixel_sharding))
+        scene = scene_with_leaves(scene, [
+            next(wrapped) if x.requires_grad else x for x in leaves])
     return _render_image_impl(scene, options, seed, engine,
                               pixel_sharding=pixel_sharding)
+
+
+def graph_forward(options: RenderOptions, engine=None):
+    """The body of a forward CUDA graph (graphs.Program): (scene, seed) ->
+    the image, under no_grad."""
+    def forward(scene, seed):
+        with torch.no_grad():
+            return _render_image_impl(scene, options, seed, engine)
+    return forward
 
 
 def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
@@ -803,9 +847,8 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
     vw, vh = right - left, bottom - top
     ci = options.channel_info
     dev = fs.device
-    seed = int(seed) & 0xFFFFFFFF
-    order_np, inverse_np = swizzle_order(vh, vw)
-    order = torch.as_tensor(order_np, device=dev)
+    seed = seed & 0xFFFFFFFF
+    order, inverse = _swizzle_tensors(vh, vw, dev)
     n = vw * vh
     world = shard_count(pixel_sharding)
     n_pad = -(-n // world) * world
@@ -864,7 +907,7 @@ def _render_image_impl(scene: Scene, options: RenderOptions, seed=0,
             contrib.reshape(K, nb, ci.num_total_dimensions) * w[:, None, None],
             dim=0)
     img = gather_lanes(acc / options.num_samples, lo, n_pad, pixel_sharding)
-    img = img[:n][torch.as_tensor(inverse_np, device=dev)]  # lane k -> order[k]
+    img = img[:n][inverse]  # lane k -> order[k]
     img = img.reshape(vh, vw, ci.num_total_dimensions)
     if d_lane is None:
         return img

@@ -26,18 +26,29 @@ pixel_sharding (parallel.sharding.pixel_sharding) runs the forward, the
 re-render with its secondary edges and the primary edges on this rank's
 lanes; the backward then sums the leaves' gradients over the ranks in one
 all-reduce, so every rank holds the one-process gradient.
+
+`render` on a card scene without a pixel sharding replays cached CUDA
+graphs (graphs.py; the JAX package's jit cache of `render`, :186-205): the
+first call for a configuration captures the forward, the first backward
+captures the backward, later calls replay them.  `make_render(options)`
+is the eager function (JAX `make_render`, :46): every call runs from
+Python on any device, which is what launch counting and tracing need.  A
+CPU scene and a pixel sharding run eagerly (gloo collectives cannot be
+captured).
 """
 
 from __future__ import annotations
 
 import torch
 
+from redner_tpu_torch import graphs
 from redner_tpu_torch.core.shardutil import all_reduce_grads
 from redner_tpu_torch.edge import primary_edge_gradients
 from redner_tpu_torch.render import (RenderOptions, _render_image_impl,
-                                     render_image, render_sample)
-from redner_tpu_torch.scene import (flatten_scene, scene_leaves,
-                                    scene_with_leaves)
+                                     graph_forward, render_sample)
+from redner_tpu_torch.sampler import _as_u32
+from redner_tpu_torch.scene import (flatten_scene, scene_tensors,
+                                    scene_with_tensors)
 
 _use_correlated = True
 
@@ -59,72 +70,133 @@ def default_num_edge_samples(options: RenderOptions, n_pix: int) -> int:
     return options.num_edge_samples or min(full, max(full // 4, 16384))
 
 
+def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
+                 sharding, ct_img):
+    """The edge-sampled backward: the gradient of <render(scene), ct_img>
+    w.r.t. each tensors[i] (scene_tensors order) with needs[i], None for
+    the others and where a tensor is unused.  seed is the forward's int64
+    seed tensor; the decorrelated seed + 1 wraps on the device."""
+    seed_b = seed if correlated else (seed + 1) & 0xFFFFFFFF
+    options_b = options
+    if options.num_samples_backward != options.num_samples:
+        options_b = options._copy_with(
+            num_samples=options.num_samples_backward)
+    roff = options.channel_info.radiance_dimension
+    use_secondary = options.use_secondary_edge_sampling and roff >= 0
+    ct_img = ct_img.detach()
+    leaves = [x.detach().requires_grad_(n) for x, n in zip(tensors, needs)]
+    top, left, bottom, right = scene.camera.viewport_or_full
+    num_edge_samples = default_num_edge_samples(
+        options, (right - left) * (bottom - top))
+    with torch.enable_grad():
+        s = scene_with_tensors(scene, leaves)
+        if use_secondary:
+            img, surr = _render_image_impl(
+                s, options_b, seed_b, engine,
+                secondary_d_radiance=ct_img[..., roff:roff + 3],
+                pixel_sharding=sharding)
+        else:
+            img = _render_image_impl(s, options_b, seed_b, engine,
+                                     pixel_sharding=sharding)
+            surr = torch.zeros((), dtype=ct_img.dtype, device=ct_img.device)
+        if options.use_primary_edge_sampling:
+            surr = surr + primary_edge_gradients(
+                s, flatten_scene, render_sample, options_b, seed_b,
+                ct_img, num_edge_samples, engine=engine,
+                lane_sharding=sharding)
+        # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
+        # Under a sharding each term is this rank's part of the sum.
+        total = torch.sum(img * ct_img) + surr
+        wrt = [x for x in leaves if x.requires_grad]
+        grads = torch.autograd.grad(total, wrt, allow_unused=True)
+    if sharding is not None:
+        # Every rank passes the same leaves, so the pattern of unused
+        # (None) gradients is the same on all of them.
+        grads = all_reduce_grads(grads, sharding)
+    grads = iter(grads)
+    return tuple(next(grads) if n else None for n in needs)
+
+
 class _RenderFunction(torch.autograd.Function):
-    """forward(scene, options, seed, correlated, engine, pixel_sharding,
-    *leaves): the leaves are scene_leaves(scene), passed explicitly so
-    autograd sees them; the scene supplies the structure."""
+    """The eager render: forward(scene, options, seed, correlated, engine,
+    pixel_sharding, *tensors).  The tensors are scene_tensors(scene),
+    passed explicitly so autograd sees them; the scene supplies the
+    structure."""
 
     @staticmethod
     def forward(ctx, scene, options, seed, correlated, engine,
-                pixel_sharding, *leaves):
+                pixel_sharding, *tensors):
         ctx.scene = scene
         ctx.options = options
-        ctx.seed = seed
         ctx.correlated = correlated
         ctx.engine = engine
         ctx.pixel_sharding = pixel_sharding
-        ctx.save_for_backward(*leaves)
-        return render_image(scene_with_leaves(scene, leaves), options,
-                            seed=seed, engine=engine,
-                            pixel_sharding=pixel_sharding)
+        ctx.save_for_backward(seed, *tensors)
+        return _render_image_impl(scene_with_tensors(scene, tensors), options,
+                                  seed, engine, pixel_sharding=pixel_sharding)
 
     @staticmethod
     def backward(ctx, ct_img):
-        options = ctx.options
         # The correlated flag is the one snapshotted when render was called.
-        seed_b = ctx.seed if ctx.correlated else (ctx.seed + 1) & 0xFFFFFFFF
-        options_b = options
-        if options.num_samples_backward != options.num_samples:
-            options_b = options._copy_with(
-                num_samples=options.num_samples_backward)
-        roff = options.channel_info.radiance_dimension
-        use_secondary = options.use_secondary_edge_sampling and roff >= 0
-        ct_img = ct_img.detach()
-        sharding = ctx.pixel_sharding
-        needs = ctx.needs_input_grad[6:]
-        leaves = [x.detach().requires_grad_(n)
-                  for x, n in zip(ctx.saved_tensors, needs)]
-        top, left, bottom, right = ctx.scene.camera.viewport_or_full
-        num_edge_samples = default_num_edge_samples(
-            options, (right - left) * (bottom - top))
-        with torch.enable_grad():
-            s = scene_with_leaves(ctx.scene, leaves)
-            if use_secondary:
-                img, surr = _render_image_impl(
-                    s, options_b, seed_b, ctx.engine,
-                    secondary_d_radiance=ct_img[..., roff:roff + 3],
-                    pixel_sharding=sharding)
-            else:
-                img = _render_image_impl(s, options_b, seed_b, ctx.engine,
-                                         pixel_sharding=sharding)
-                surr = torch.zeros((), dtype=ct_img.dtype,
-                                   device=ct_img.device)
-            if options.use_primary_edge_sampling:
-                surr = surr + primary_edge_gradients(
-                    s, flatten_scene, render_sample, options_b, seed_b,
-                    ct_img, num_edge_samples, engine=ctx.engine,
-                    lane_sharding=sharding)
-            # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
-            # Under a sharding each term is this rank's part of the sum.
-            total = torch.sum(img * ct_img) + surr
-            wrt = [x for x in leaves if x.requires_grad]
-            grads = torch.autograd.grad(total, wrt, allow_unused=True)
-        if sharding is not None:
-            # Every rank passes the same leaves, so the pattern of unused
-            # (None) gradients is the same on all of them.
-            grads = all_reduce_grads(grads, sharding)
-        grads = iter(grads)
-        return (None,) * 6 + tuple(next(grads) if n else None for n in needs)
+        seed, *tensors = ctx.saved_tensors
+        return (None,) * 6 + _scene_grads(
+            ctx.scene, tensors, ctx.needs_input_grad[6:], ctx.options, seed,
+            ctx.correlated, ctx.engine, ctx.pixel_sharding, ct_img)
+
+
+class _GraphedRender(torch.autograd.Function):
+    """The compiled render: forward(program, seed, *tensors) replays the
+    program's forward graph, backward its backward graph."""
+
+    @staticmethod
+    def forward(ctx, program, seed, *tensors):
+        ctx.program = program
+        ctx.save_for_backward(seed, *tensors)
+        return program.forward(tensors, seed)
+
+    @staticmethod
+    def backward(ctx, ct_img):
+        seed, *tensors = ctx.saved_tensors
+        return (None, None) + ctx.program.backward(tensors, seed, ct_img)
+
+
+def _scene_device(scene):
+    return scene.shapes[0].vertices.device
+
+
+def make_render(options: RenderOptions, pixel_sharding=None,
+                correlated=None, engine=None):
+    """The eager edge-sampled render for a static RenderOptions (JAX
+    make_render, redner_tpu/render_grad.py:46): fn(scene, seed=0) ->
+    image, differentiable like `render`, run from Python on every call
+    (every kernel launched by its wrapper and counted), on any device.
+
+    correlated: the correlated-replay flag this function is built for
+    (default: the current global), so toggling the global between the
+    forward and the backward changes nothing.  engine, pixel_sharding: as
+    for `render`."""
+    correlated = _use_correlated if correlated is None else bool(correlated)
+
+    def fn(scene, seed=0):
+        return _RenderFunction.apply(
+            scene, options, _as_u32(seed, _scene_device(scene)), correlated,
+            engine, pixel_sharding, *scene_tensors(scene))
+
+    return fn
+
+
+def _make_program(options, correlated, engine):
+    def make(scene):
+        needs = [t.requires_grad for t in scene_tensors(scene)]
+
+        def backward(s, seed, ct):
+            return _scene_grads(s, scene_tensors(s), needs, options, seed,
+                                correlated, engine, None, ct)
+
+        return graphs.Program(scene, graph_forward(options, engine),
+                              backward)
+
+    return make
 
 
 def render(scene, options: RenderOptions, seed=0, engine=None,
@@ -133,10 +205,22 @@ def render(scene, options: RenderOptions, seed=0, engine=None,
     render_image(scene, options, seed); its backward gives every float
     tensor of the scene (scene_leaves) the reference's scene gradient.
 
-    engine: None = the CUDA kernels on a card scene (plain versions on a
-    CPU scene); "plain" (or its aliases "bruteforce" and "cluster") forces
-    the plain ray queries.  pixel_sharding: see
+    On a card scene without pixel_sharding the call replays the cached
+    CUDA graphs of its configuration (graphs.py), capturing them on the
+    first call (the forward) and the first backward; the image and the
+    gradients are fresh tensors.  A CPU scene, or a pixel sharding, runs
+    make_render's eager function.
+
+    seed: an int (wrapped to 32 bits) or an integer tensor, taken to the
+    scene's device.  engine: None = the CUDA kernels on a card scene
+    (plain versions on a CPU scene); "plain" (or its aliases "bruteforce"
+    and "cluster") forces the plain ray queries.  pixel_sharding: see
     parallel.sharding.render_sharded."""
-    return _RenderFunction.apply(scene, options, int(seed) & 0xFFFFFFFF,
-                                 _use_correlated, engine, pixel_sharding,
-                                 *scene_leaves(scene))
+    dev = _scene_device(scene)
+    if dev.type != "cuda" or pixel_sharding is not None:
+        return make_render(options, pixel_sharding, _use_correlated,
+                           engine)(scene, seed)
+    prog = graphs.program("render", scene, options, _use_correlated, engine,
+                          _make_program(options, _use_correlated, engine))
+    return _GraphedRender.apply(prog, _as_u32(seed, dev),
+                                *scene_tensors(scene))

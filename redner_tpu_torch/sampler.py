@@ -15,11 +15,11 @@ every result is masked back to 32 bits.
 from __future__ import annotations
 
 import enum
-import functools
 
 import numpy as np
 import torch
 
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.sobol_table import (SOBOL_BITS, SOBOL_TABLE_DIMS,
                                           load_sobol_table)
 
@@ -76,10 +76,12 @@ def _to_unit_float(bits):
 
 
 def _as_u32(x, device):
-    """Any int (or int tensor, negative values wrapping) -> int64 uint32."""
+    """Any int (or int tensor, negative values wrapping) -> int64 uint32.
+    An int becomes a device fill: a copy from the host would sync it, and
+    could not be captured in a CUDA graph."""
     if torch.is_tensor(x):
         return x.to(device=device, dtype=torch.int64) & _M32
-    return torch.as_tensor(int(x) & _M32, dtype=torch.int64, device=device)
+    return torch.full((), int(x) & _M32, dtype=torch.int64, device=device)
 
 
 def _device_of(*xs):
@@ -160,14 +162,16 @@ def _owen_scramble(x, key):
     return _reverse_bits(x)
 
 
-@functools.lru_cache(maxsize=None)
-def _sobol_planes(device: str):
+def _sobol_planes(device):
     """planes[d, j, k] = bit k of direction number j of dimension d, as
-    float32 (0 or 1): the shipped table, read on first use, once per
+    float32 (0 or 1): the shipped table, read on first use, kept per
     device."""
-    bits = (load_sobol_table().astype(np.int64)[..., None]
-            >> np.arange(SOBOL_BITS)) & 1
-    return torch.as_tensor(bits.astype(np.float32), device=device)
+    def planes():
+        bits = (load_sobol_table().astype(np.int64)[..., None]
+                >> np.arange(SOBOL_BITS)) & 1
+        return bits.astype(np.float32)
+
+    return const(planes, torch.float32, device, key="sobol_planes")
 
 
 def _sobol_raw(index, dims):
@@ -179,7 +183,8 @@ def _sobol_raw(index, dims):
     product of 0/1 float32 entries whose sums (at most 32) are exact, then
     mod 2.  One matmul for all dims instead of 32 shift-and-XOR steps per
     dim."""
-    planes = _sobol_planes(str(index.device))[list(dims)]  # (D, 32, 32)
+    # dims are consecutive: a slice, not an index tensor from the host.
+    planes = _sobol_planes(index.device)[dims[0]:dims[-1] + 1]  # (D, 32, 32)
     D = planes.shape[0]
     shifts = torch.arange(SOBOL_BITS, device=index.device)
     bits = ((index.reshape(-1, 1) >> shifts) & 1).to(torch.float32)
@@ -207,8 +212,8 @@ def sobol_uniforms(seed, pixel_id, sample_id, dim_start: int, n_dims: int):
         idx_key = _hash_u32(_mul32(seed, 0x9E3779B9) ^ pixel_id)
         index = _owen_scramble(sample_id, idx_key)
         raw = _sobol_raw(index, table)
-        dkey = torch.as_tensor([(d * 0x85EBCA6B) & _M32 for d in table],
-                               dtype=torch.int64, device=dev)
+        dkey = const(tuple((d * 0x85EBCA6B) & _M32 for d in table),
+                     torch.int64, dev)
         val_key = _hash_u32(idx_key[..., None] ^ dkey)
         vals = _to_unit_float(_owen_scramble(raw, val_key))
         vals = vals.expand(shape + (len(table),))

@@ -25,6 +25,7 @@ import torch
 
 from redner_tpu_torch.camera import Camera
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.envmap import EnvironmentMap, PackedEnvmap, pack_envmap
 from redner_tpu_torch.geometry import Shape, tri_areas
 from redner_tpu_torch.light import AreaLight
@@ -173,7 +174,7 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
 
     # Per-corner attributes
     uv_parts, n_parts, hn_parts, c_parts = [], [], [], []
-    default_uv = torch.tensor(_DEFAULT_UV, **kw)
+    default_uv = const(_DEFAULT_UV, **kw)
     for s in shapes:
         F = s.num_triangles
         if s.uvs is not None:
@@ -245,7 +246,7 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
     mat_ftab = torch.cat(
         uvs_cols
         + [
-            torch.tensor(
+            const(
                 [[float(m.two_sided),
                   float(m.use_vertex_color),
                   float(m.compute_specular_lighting),
@@ -267,12 +268,10 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
     if L > 0:
         light_intensity = torch.stack(
             [l.intensity for l in scene.area_lights]).to(dtype)
-        light_two_sided = torch.tensor(
-            [l.two_sided for l in scene.area_lights], dtype=torch.bool,
-            device=dev)
-        light_directly_visible = torch.tensor(
-            [l.directly_visible for l in scene.area_lights], dtype=torch.bool,
-            device=dev)
+        light_two_sided = const(
+            [l.two_sided for l in scene.area_lights], torch.bool, dev)
+        light_directly_visible = const(
+            [l.directly_visible for l in scene.area_lights], torch.bool, dev)
         tmax = max(shapes[l.shape_id].num_triangles for l in scene.area_lights)
         tri_cdfs, tri_faces, areas, powers = [], [], [], []
         for l in scene.area_lights:
@@ -453,16 +452,17 @@ def _fetch_material_stack(textures, uv, du_dxy, dv_dxy, mid, channels):
 # ------------------------------------------------------------------
 
 
-def _map_float_tensors(obj, fn):
+def _map_tensors(obj, fn, floats_only=True):
     """Rebuild obj (a Scene, its dataclasses and tuples) with every float
-    tensor t replaced by fn(t), in a fixed traversal order."""
+    tensor t (every tensor, unless floats_only) replaced by fn(t), in a
+    fixed traversal order."""
     if torch.is_tensor(obj):
-        return fn(obj) if obj.is_floating_point() else obj
+        return fn(obj) if obj.is_floating_point() or not floats_only else obj
     if isinstance(obj, tuple):
-        return tuple(_map_float_tensors(o, fn) for o in obj)
+        return tuple(_map_tensors(o, fn, floats_only) for o in obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: _map_float_tensors(getattr(obj, f.name), fn)
+            f.name: _map_tensors(getattr(obj, f.name), fn, floats_only)
             for f in dataclasses.fields(obj)})
     return obj
 
@@ -476,11 +476,45 @@ def scene_leaves(scene: Scene) -> list:
     generic texture, normal map); each light's intensity; the envmap's
     texels, uv scale, env_to_world and world_to_env."""
     out = []
-    _map_float_tensors(scene, lambda t: out.append(t) or t)
+    _map_tensors(scene, lambda t: out.append(t) or t)
     return out
 
 
 def scene_with_leaves(scene: Scene, leaves) -> Scene:
     """The scene with its float tensors replaced, in scene_leaves order."""
     it = iter(leaves)
-    return _map_float_tensors(scene, lambda t: next(it))
+    return _map_tensors(scene, lambda t: next(it))
+
+
+def scene_tensors(scene: Scene) -> list:
+    """Every tensor of the scene, float and integer alike (indices, weld
+    maps, ...), in a fixed traversal order: what a CUDA graph of a render
+    reads (graphs.py)."""
+    out = []
+    _map_tensors(scene, lambda t: out.append(t) or t, floats_only=False)
+    return out
+
+
+def scene_with_tensors(scene: Scene, tensors) -> Scene:
+    """The scene with every tensor replaced, in scene_tensors order."""
+    it = iter(tensors)
+    return _map_tensors(scene, lambda t: next(it), floats_only=False)
+
+
+def scene_structure(obj):
+    """A hashable description of everything of a scene but its tensors'
+    values: each tensor's shape, dtype, device and requires_grad, and
+    every other field (resolution, camera type, ids, flags, ...) by value.
+    Two scenes with equal structures differ only in tensor values, which
+    a CUDA graph of a render takes as inputs."""
+    if torch.is_tensor(obj):
+        return ("tensor", tuple(obj.shape), obj.dtype, obj.device,
+                obj.requires_grad)
+    if isinstance(obj, (tuple, list)):
+        return (type(obj).__name__,) + tuple(scene_structure(o) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__qualname__,) + tuple(
+            (f.name, scene_structure(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj))
+    hash(obj)  # a field that cannot key a cache raises here
+    return obj

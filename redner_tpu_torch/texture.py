@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from redner_tpu_torch.core import vecmath as vm
+from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.device import resolve_device
 
 MAX_MIP_LEVELS = 8  # src/texture.h:11
@@ -87,12 +88,12 @@ def _area_downsample(x, out_h: int, out_w: int):
         return x.reshape(out_h, h // out_h, out_w, w // out_w, c).mean(
             dim=(1, 3))
     if out_h != h:
-        wh = torch.as_tensor(_linear_resize_weights(h, out_h), dtype=x.dtype,
-                             device=x.device)
+        wh = const(lambda: _linear_resize_weights(h, out_h), x.dtype,
+                   x.device, key=("resize", h, out_h))
         x = torch.einsum("hwc,hk->kwc", x, wh)
     if out_w != w:
-        ww = torch.as_tensor(_linear_resize_weights(w, out_w), dtype=x.dtype,
-                             device=x.device)
+        ww = const(lambda: _linear_resize_weights(w, out_w), x.dtype,
+                   x.device, key=("resize", w, out_w))
         x = torch.einsum("hwc,wk->hkc", x, ww)
     return x
 
@@ -170,8 +171,8 @@ def pack_texture(tex: Texture) -> PackedTexture:
         flat=torch.cat(flats, dim=0), uv_scale=tex.uv_scale,
         widths=tuple(widths), heights=tuple(heights), offsets=tuple(offsets),
         is_constant=False,
-        level_tab=torch.tensor([widths, heights, offsets], dtype=torch.int64,
-                               device=tex.texels.device))
+        level_tab=const([widths, heights, offsets], torch.int64,
+                        tex.texels.device))
 
 
 def _wrap_mod(x, m, pow2: bool):
@@ -322,8 +323,7 @@ def pack_material_bank(stacks) -> MaterialBank:
     sizes = [s for r in rows for s in r[1:1 + 2 * Lmax]]
     return MaterialBank(
         flat=torch.cat(flats, dim=0),
-        tab=torch.tensor(rows, dtype=torch.int64,
-                         device=present[0].flat.device),
+        tab=const(rows, torch.int64, present[0].flat.device),
         Lmax=Lmax, pow2=_is_pow2(sizes))
 
 

@@ -1,6 +1,11 @@
 """redner_tpu_torch's CUDA kernels against their plain PyTorch versions, on
 the card.  Skipped without CUDA: the kernels have no CPU mode.
 
+render and render_image replay cached CUDA graphs on the card
+(redner_tpu_torch.graphs): a test that counts the kernels of a render
+counts them at capture (_captured_launches: the kernel nodes the forward
+and backward graphs hold), or runs make_render's eager function.
+
 This file imports neither JAX nor redner_tpu, so it also runs where JAX is
 not installed; there, skip the repository's conftest (which pins JAX):
 
@@ -15,7 +20,7 @@ import pytest
 import torch
 
 import redner_tpu_torch as rtt
-from redner_tpu_torch import accel
+from redner_tpu_torch import accel, graphs
 from redner_tpu_torch.core.types import Ray
 from redner_tpu_torch.ops import intersect as plain
 from redner_tpu_torch.ops import intersect_cuda as ic
@@ -103,7 +108,8 @@ def test_any_hit_settle_points_match_plain(dev):
 
 @pytest.mark.cuda
 def test_inactive_tiles_miss(dev):
-    """No active (tile, chunk) pair: no launch, and every lane misses."""
+    """No active (tile, chunk) pair: one launch each that does no work (the
+    count on the device is 0), and every lane misses."""
     fs = rtt.flatten_scene(_scene(dev))
     n = 300
     ray = Ray(org=torch.tensor([0.0, 0.0, -50.0], device=dev).expand(n, 3),
@@ -111,12 +117,13 @@ def test_inactive_tiles_miss(dev):
               tmin=torch.full((n,), 1e-3, device=dev),
               tmax=torch.full((n,), float("inf"), device=dev))
     rb = ic.prepare_rays(fs, ray)
-    assert not rb.tile_active.any() and rb.pairs.shape[0] == 0
+    assert not rb.tile_active.any() and int(rb.count) == 0
+    assert rb.pairs.shape[0] == rb.mask.numel()
     ic.reset_launch_counts()
     best_t, best_i = ic.closest_hit(fs.layout, rb)
     assert torch.isinf(best_t).all() and (best_i == -1).all()
     assert not ic.any_hit(fs.layout, rb).any()
-    assert ic.LAUNCHES == {"closest_hit": 0, "any_hit": 0}
+    assert ic.LAUNCHES == {"closest_hit": 1, "any_hit": 1}
 
 
 # Scenes built straight from vertex arrays, for batches whose work list is
@@ -209,6 +216,21 @@ def test_exact_ties_take_lower_index(dev):
     assert (best_i[live] == 0).all() and (best_t[live] == 2.0).all()
 
 
+def _captured_launches(run):
+    """run() on an empty graph cache -> (its result, the kernel launches
+    its forward and backward captures recorded): the kernel nodes of one
+    graphed forward, or of one graphed gradient."""
+    graphs.clear()
+    before = dict(graphs.CAPTURES)
+    out = run()
+    got = {k: 0 for k in ic.LAUNCHES}
+    for kind in ("forward", "backward"):
+        if graphs.CAPTURES[kind] > before[kind]:
+            for k, v in graphs.LAST_CAPTURE[kind]["launches"].items():
+                got[k] += v
+    return out, got
+
+
 def _render_grads(scene, opts, seed, weight, engine=None):
     """The image of render and the gradients of sum(image * weight) w.r.t.
     the first material's diffuse reflectance, the light intensity, every
@@ -234,12 +256,13 @@ def test_render_gradient_matches_plain(dev):
     opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
     w = np.random.default_rng(4).uniform(0.5, 1.5, (16, 16, 3)).astype(
         np.float32)
-    ic.reset_launch_counts()
-    img, grads = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w)
-    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
-    img_p, grads_p = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w,
-                                   engine="plain")
-    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    (img, grads), launches = _captured_launches(
+        lambda: _render_grads(_scene(dev, res=(16, 16)), opts, 5, w))
+    assert launches == {"closest_hit": 8, "any_hit": 4}
+    (img_p, grads_p), launches = _captured_launches(
+        lambda: _render_grads(_scene(dev, res=(16, 16)), opts, 5, w,
+                              engine="plain"))
+    assert launches == {"closest_hit": 0, "any_hit": 0}
     assert torch.equal(img, img_p)
     assert np.abs(grads[2]).max() > 0  # the sphere's vertices
     for g, gp in zip(grads, grads_p):
@@ -251,9 +274,10 @@ def test_render_gradient_matches_plain(dev):
 @pytest.mark.cuda
 def test_render_matches_cpu(dev):
     opts = rtt.RenderOptions(num_samples=2, max_bounces=2)
-    ic.reset_launch_counts()
-    img = rtt.render_image(_scene(dev, res=(16, 16)), opts, seed=5).cpu()
-    assert ic.LAUNCHES == {"closest_hit": 3, "any_hit": 2}
+    img, launches = _captured_launches(
+        lambda: rtt.render_image(_scene(dev, res=(16, 16)), opts, seed=5))
+    img = img.cpu()
+    assert launches == {"closest_hit": 3, "any_hit": 2}
     ref = rtt.render_image(_scene("cpu", res=(16, 16)), opts, seed=5)
     close = torch.isclose(img, ref, rtol=1e-4, atol=1e-6 * float(ref.max()))
     assert int((~close.all(-1)).sum()) <= 2
@@ -289,12 +313,13 @@ def test_textured_envmap_render_gradient_matches_plain(dev):
 
     kw = dict(res=(16, 16), theta=16, phi=32, tex=64, env=(32, 64))
     opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
-    ic.reset_launch_counts()
-    got = envtex_gradient(make_envtex_scene(device=dev, **kw), opts)
-    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
-    ref = envtex_gradient(make_envtex_scene(device=dev, **kw), opts,
-                          engine="plain")
-    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    got, launches = _captured_launches(
+        lambda: envtex_gradient(make_envtex_scene(device=dev, **kw), opts))
+    assert launches == {"closest_hit": 8, "any_hit": 4}
+    ref, launches = _captured_launches(
+        lambda: envtex_gradient(make_envtex_scene(device=dev, **kw), opts,
+                                engine="plain"))
+    assert launches == {"closest_hit": 0, "any_hit": 0}
     for g, r in zip(got, ref):
         g, r = g.cpu().numpy(), r.cpu().numpy()
         assert np.isfinite(g).all() and np.abs(r).max() > 0
@@ -314,14 +339,16 @@ def test_gbuffer_gradient_matches_plain(dev):
     launch each, and no any-hit launch runs without radiance."""
     from chip_smoke import aov_render, make_envtex_scene
 
-    ic.reset_launch_counts()
-    img, got = aov_render("g_buffer", make_envtex_scene(device=dev, **_AOV_KW),
-                          grad=True)
-    assert ic.LAUNCHES == {"closest_hit": 3, "any_hit": 0}
-    img_p, ref = aov_render("g_buffer",
-                            make_envtex_scene(device=dev, **_AOV_KW),
-                            engine="plain", grad=True)
-    assert ic.LAUNCHES == {"closest_hit": 3, "any_hit": 0}
+    (img, got), launches = _captured_launches(
+        lambda: aov_render("g_buffer",
+                           make_envtex_scene(device=dev, **_AOV_KW),
+                           grad=True))
+    assert launches == {"closest_hit": 3, "any_hit": 0}
+    (img_p, ref), launches = _captured_launches(
+        lambda: aov_render("g_buffer",
+                           make_envtex_scene(device=dev, **_AOV_KW),
+                           engine="plain", grad=True))
+    assert launches == {"closest_hit": 0, "any_hit": 0}
     assert img.shape == (16, 16, 47) and torch.equal(img, img_p)
     for g, r in zip(got, ref):
         g, r = g.cpu().numpy(), r.cpu().numpy()
@@ -398,9 +425,8 @@ def test_fisheye_gradient_matches_plain(dev):
             torch.sum(img * torch.as_tensor(w, device=dev)), leaves)
         return img.detach(), [x.cpu().numpy() for x in g]
 
-    ic.reset_launch_counts()
-    img, g = grads(None)
-    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+    (img, g), launches = _captured_launches(lambda: grads(None))
+    assert launches == {"closest_hit": 8, "any_hit": 4}
     img_p, g_p = grads("plain")
     assert torch.equal(img, img_p)
     for a, b in zip(g, g_p):
@@ -461,9 +487,9 @@ def test_replay_and_remat_gradients_match_live(dev, mode, launches):
                               isect_replay_max_mb=64.0) if mode == "replay"
             else rtt.RenderOptions(num_samples=2, max_bounces=1, remat=True))
     img, grads = _render_grads(_scene(dev, res=(16, 16)), live, 5, w)
-    ic.reset_launch_counts()
-    img_m, grads_m = _render_grads(_scene(dev, res=(16, 16)), opts, 5, w)
-    assert ic.LAUNCHES == launches
+    (img_m, grads_m), got = _captured_launches(
+        lambda: _render_grads(_scene(dev, res=(16, 16)), opts, 5, w))
+    assert got == launches
     assert torch.equal(img_m, img)
     for g, gm in zip(grads, grads_m):
         assert np.isfinite(gm).all()
@@ -495,10 +521,14 @@ def test_frontend_renders_on_the_card(dev):
                         material=mat), floor, light])
     assert scene.shapes[0].vertices.is_cuda
     verts = scene.shapes[0].vertices.requires_grad_(True)
-    ic.reset_launch_counts()
-    img = pyredner.render(scene, num_samples=2, max_bounces=1, seed=5)
-    img.sum().backward()
-    assert ic.LAUNCHES == {"closest_hit": 8, "any_hit": 4}
+
+    def run():
+        img = pyredner.render(scene, num_samples=2, max_bounces=1, seed=5)
+        img.sum().backward()
+        return img
+
+    img, launches = _captured_launches(run)
+    assert launches == {"closest_hit": 8, "any_hit": 4}
     ref_scene = _scene(dev, res=(16, 16))
     ref_verts = ref_scene.shapes[0].vertices.requires_grad_(True)
     ref = rtt.render(ref_scene, rtt.RenderOptions(num_samples=2,
@@ -567,3 +597,117 @@ def test_one_rank_nccl_render_matches_one_process(dev, tmp_path):
     for g, gs in zip(grads, grads_s):
         np.testing.assert_allclose(gs.cpu().numpy(), g, rtol=1e-4,
                                    atol=1e-6 * np.abs(g).max())
+
+
+# ------------------------------------------------------ the compiled render
+
+
+def _leaf_grads(render, scene, seed, weight):
+    """render(scene, seed)'s image and the gradients of sum(image *
+    weight) w.r.t. the sphere's vertices, the diffuse and the light."""
+    leaves = [scene.shapes[0].vertices,
+              scene.materials[0].diffuse_reflectance.texels,
+              scene.area_lights[0].intensity]
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        img = render(scene, seed)
+        grads = torch.autograd.grad(
+            torch.sum(img * torch.as_tensor(weight, device=img.device)),
+            leaves)
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+    return img.detach(), [g.detach() for g in grads]
+
+
+@pytest.mark.cuda
+def test_graphed_render_matches_eager(dev):
+    """At 32x32 the graphed render's image is the eager one's (atol 1e-6 on
+    every pixel) and its gradients agree up to the order of the index
+    backward's atomics (rtol 1e-4, atol 1e-6 x max), at two seeds and
+    after an in-place update of the vertices, which the next replay
+    reads."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    eager = rtt.make_render(opts)
+    scene = _scene(dev, res=(32, 32))
+    w = np.random.default_rng(9).uniform(0.5, 1.5, (32, 32, 3)).astype(
+        np.float32)
+    graphs.clear()
+    for step, seed in enumerate((5, 6, 6)):
+        if step == 2:
+            with torch.no_grad():
+                scene.shapes[0].vertices.mul_(1.05)
+        img, got = _leaf_grads(
+            lambda s, sd: rtt.render(s, opts, seed=sd), scene, seed, w)
+        ref_img, ref = _leaf_grads(eager, scene, seed, w)
+        torch.testing.assert_close(img, ref_img, rtol=0, atol=1e-6)
+        for g, r in zip(got, ref):
+            g, r = g.cpu().numpy(), r.cpu().numpy()
+            assert np.isfinite(g).all() and np.abs(r).max() > 0
+            np.testing.assert_allclose(g, r, rtol=1e-4,
+                                       atol=1e-6 * np.abs(r).max())
+    assert len(graphs._cache) == 1
+
+
+@pytest.mark.cuda
+def test_graphed_results_are_copies_and_one_capture_per_key(dev):
+    """A result kept from call 1 is unchanged after call 2 (another seed);
+    one key captures one forward and one backward graph, and every later
+    call replays them."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(16, 16))
+    w = np.ones((16, 16, 3), np.float32)
+    graphs.clear()
+    captures, replays = dict(graphs.CAPTURES), dict(graphs.REPLAYS)
+    render = lambda s, sd: rtt.render(s, opts, seed=sd)
+    img1, g1 = _leaf_grads(render, scene, 5, w)
+    keep_img, keep_g = img1.clone(), [g.clone() for g in g1]
+    img2, g2 = _leaf_grads(render, scene, 6, w)
+    _leaf_grads(render, scene, 7, w)
+    assert not torch.equal(img1, img2)
+    assert torch.equal(img1, keep_img)
+    assert all(torch.equal(a, b) for a, b in zip(g1, keep_g))
+    assert {k: graphs.CAPTURES[k] - captures[k] for k in captures} == {
+        "forward": 1, "backward": 1}
+    assert {k: graphs.REPLAYS[k] - replays[k] for k in replays} == {
+        "forward": 3, "backward": 3}
+
+
+@pytest.mark.cuda
+def test_other_indices_replay_as_their_own_scene(dev):
+    """A scene of the same shapes whose light faces the other way (its
+    indices' winding flipped) shares the key and renders its own image:
+    the integer arrays are inputs of the graph, not baked into it."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(16, 16))
+    light = scene.shapes[2]
+    flipped = dataclasses.replace(scene, shapes=scene.shapes[:2] + (
+        dataclasses.replace(light, indices=light.indices.flip(1)),))
+    graphs.clear()
+    with torch.no_grad():
+        a = rtt.render(scene, opts, seed=5)
+        b = rtt.render(flipped, opts, seed=5)
+        ref_b = rtt.make_render(opts)(flipped, 5)
+    assert len(graphs._cache) == 1
+    assert not torch.allclose(a, b)
+    torch.testing.assert_close(b, ref_b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_graph_cache_evicts_the_least_recent_key(dev):
+    """The cache holds CACHE_SIZE keys: one more evicts the least recently
+    used, which captures again when it comes back."""
+    scene = _scene(dev, res=(16, 16))
+    graphs.clear()
+    keys = [rtt.RenderOptions(num_samples=n, max_bounces=0)
+            for n in range(1, graphs.CACHE_SIZE + 2)]
+    with torch.no_grad():
+        for opts in keys:
+            rtt.render_image(scene, opts, seed=1)
+        assert len(graphs._cache) == graphs.CACHE_SIZE
+        before = graphs.CAPTURES["forward"]
+        rtt.render_image(scene, keys[-1], seed=2)  # cached: a replay
+        assert graphs.CAPTURES["forward"] == before
+        rtt.render_image(scene, keys[0], seed=1)  # evicted: captured again
+        assert graphs.CAPTURES["forward"] == before + 1

@@ -177,8 +177,10 @@ def test_tile_mask_and_ray_sort_match_pallas(sphere, rays):
     # The kernels' work list holds the Pallas flat step table's (tile, chunk)
     # pairs; put back in tile-major order, it is that table.
     tile_of, chunk_of, _, num_steps, _ = jpi._flat_active_table(jnp.asarray(jmask))
-    pairs = tic._active_lists(tmask).numpy().astype(np.int64)
+    pairs, count = tic._active_lists(tmask)
     k = int(num_steps)
+    assert int(count) == k
+    pairs = pairs[:k].numpy().astype(np.int64)
     pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
     np.testing.assert_array_equal(pairs[:, 1], np.asarray(chunk_of)[:k])
     np.testing.assert_array_equal(pairs[:, 0], np.asarray(tile_of)[:k])

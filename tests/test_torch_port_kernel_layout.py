@@ -118,10 +118,17 @@ def test_no_hit_key_unpacks_to_a_miss():
 # -------------------------------------------------------------- work list
 
 
-def _check_work_list(mask, pairs):
+def _check_work_list(mask, pairs, count):
+    """pairs holds the capacity of rows (one per (tile, chunk)), every row
+    in range; its first count rows are exactly the active pairs, in
+    order."""
     mask = np.asarray(mask, bool)
     pairs = np.asarray(pairs, np.int64)
-    assert pairs.shape == (int(mask.sum()), 2)
+    count = np.asarray(count)
+    assert count.shape == (1,) and int(count[0]) == int(mask.sum())
+    assert pairs.shape == (mask.size, 2)
+    assert ((pairs >= 0) & (pairs < mask.shape)).all()
+    pairs = pairs[:int(count[0])]
     got = np.zeros_like(mask)
     got[pairs[:, 0], pairs[:, 1]] = True
     np.testing.assert_array_equal(got, mask)  # exactly the active pairs
@@ -139,16 +146,17 @@ def test_work_list_random_masks(density):
     mask[5] = True  # one tile with every chunk
     if density == 0.0:
         mask[:] = False
-    pairs = ic._active_lists(torch.as_tensor(mask))
+    pairs, count = ic._active_lists(torch.as_tensor(mask))
     assert pairs.dtype == torch.int32 and pairs.is_contiguous()
-    _check_work_list(mask, pairs.numpy())
+    assert count.dtype == torch.int32
+    _check_work_list(mask, pairs.numpy(), count.numpy())
 
 
 @pytest.mark.parametrize("toward", [False, True])
 def test_work_list_of_a_ray_batch(sphere, toward):
     rb = ic.prepare_rays(sphere, _rays(1500, seed=4, toward_sphere=toward))
-    assert rb.pairs.shape[0] > 0
-    _check_work_list(rb.mask.numpy(), rb.pairs.numpy())
+    assert int(rb.count) > 0
+    _check_work_list(rb.mask.numpy(), rb.pairs.numpy(), rb.count.numpy())
     assert torch.equal(rb.tile_active, rb.mask.any(dim=1))
 
 
@@ -168,6 +176,7 @@ def test_mask_in_blocks_equals_one_block(monkeypatch, tiles):
     assert bool(one.mask.any()) and not bool(one.mask.all())
     assert torch.equal(blocks.mask, one.mask)
     assert torch.equal(blocks.pairs, one.pairs)
+    assert torch.equal(blocks.count, one.count)
 
 
 def test_unbalanced_and_tie_batches():
@@ -216,7 +225,7 @@ def _closest_by_items(lay, rb, seed, blocks=None):
     if blocks is None:
         blocks = _t_blocks(lay, rb)
     keys = torch.full((rb.R.shape[0],), ic.NO_HIT, dtype=torch.int64)
-    items = [(p, q) for p in range(rb.pairs.shape[0])
+    items = [(p, q) for p in range(int(rb.count))
              for q in range(plain.CHUNK // QUART)]
     np.random.default_rng(seed).shuffle(items)
     for p, q in items:
