@@ -127,9 +127,18 @@ Phases (any failure exits non-zero):
              sphere's diffuse (the loss falls at every step and matches
              one process within rtol 1e-3); launches per rank (28 + 14 by
              the code), peak memory per rank, fwd+bwd of one process
-             against the two ranks';
- 13. graph   the compiled render: rtt.render and rtt.render_image replay
-             cached CUDA graphs (redner_tpu_torch.graphs).  The eager slice,
+             against the two ranks'.  The gloo pair runs eagerly, by its
+             group's backend (its calls capture nothing).  The one-rank
+             NCCL group also replays graphs with its collectives captured:
+             render_sharded graphed against its eager route and against
+             one process, with the checks of [graph]'s routes below; and
+             five graphed make_train_step steps, edge-sampled and
+             continuous, against one process's eager steps (losses within
+             rtol 1e-3, falling), the step's wall and the CUDA kernels and
+             idle share of one step;
+ 13. graph   the compiled render: rtt.render, rtt.render_image (with and
+             without autograd) and rtt.screen_gradient_image replay cached
+             CUDA graphs (redner_tpu_torch.graphs).  The eager slice,
              envtex and G-buffer gradients under
              torch.cuda.set_sync_debug_mode("error") (no host sync); the
              slice, envtex and G-buffer gradients and one remat gradient
@@ -147,15 +156,28 @@ Phases (any failure exits non-zero):
              the device busy and idle share of one graphed gradient, the
              peak memory eager and graphed, the memory the graph cache
              holds, and one 1024x1024 x 4 spp slice gradient eager against
-             graphed (the device-bound contrast);
+             graphed (the device-bound contrast).  Then two more routes,
+             each with the same checks (graph_route): the slice's
+             continuous gradient through render_image under autograd, and
+             the aov scene's screen gradient (4 spp, Sobol, primary edges;
+             forward only, its image within relative L2 1e-4 of eager: its
+             edge scatter sums with atomics): its eager route under sync
+             debug mode "error", graphed against eager, its launch counts
+             zeroed before its first graphed call, its kernel nodes at
+             capture and in a profile of the replays against the eager
+             route's launches (twice them for render_image, whose graphed
+             backward re-renders the forward), its kernels against their
+             plain versions on every batch, its wall eager and graphed
+             (median of 3) and the busy and idle share of one graphed run;
  14. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
-Phases 4-12 run inside eager_routes(): rtt.render, rtt.render_image and
-the utilities' render go through rtt.make_render's eager function and the
-sample loop, so their launch counts, captured batches and decision traces
-see every launch from Python and their numbers stay comparable with the
-eager render's.  Only [graph] runs the graphs.
+Phases 4-11 run inside graphs.disable(): every entry point runs eagerly,
+from Python, so their launch counts, captured batches and decision traces
+see every launch and their numbers stay comparable with the eager
+render's.  So do --memory's live and remat cells and the eager side of
+every graphed check.  [sharded] runs its one-process and gloo parts
+eagerly and its NCCL part both ways; [graph] runs the graphs.
 
     python3 chip_smoke.py --memory
 
@@ -172,14 +194,13 @@ and what its graphs keep, at 256x256 x 4 and 1024x1024 x 16 spp
 
 runs only the lane split over N cards (phase_cards): the slice's gradient
 at 256x256 x 4 spp and 1024x1024 x 4 spp on N spawned ranks, one card
-each over NCCL, against one process on the first card: pixels, gradients,
-launches and peak memory per rank, fwd+bwd of one process against the
-ranks'.
+each over NCCL, against one process on the first card, all replaying
+graphs: pixels, gradients, kernel nodes and peak memory per rank, fwd+bwd
+of one graphed card against the ranks'.
 
 It imports nothing of JAX or redner_tpu.
 """
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -545,7 +566,8 @@ def phase_device():
     smi_line = (out.splitlines()[0] if out
                 else f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi_line}; "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"torch {torch.__version__} cuda {torch.version.cuda} nccl "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
     _check(torch.backends.cuda.matmul.allow_tf32 is False,
            "torch.backends.cuda.matmul.allow_tf32 must be False")
     _check(torch.backends.cudnn.allow_tf32 is False,
@@ -1229,6 +1251,8 @@ AOV_LEAVES = {
                     "light intensity"),
 }
 POINT_LIGHT = [0.5, 2.0, -2.0]
+SCREEN_OPTS = dict(num_samples=4, max_bounces=1,
+                   sampler_type=rtt.SamplerType.sobol)
 IMAGE_AGREE_MIN = 0.99  # card vs CPU: float pixels within rtol 1e-4
 ID_AGREE_MIN = 0.999  # card vs CPU: id pixels equal
 
@@ -1267,8 +1291,7 @@ def aov_render(name, scene, engine=None, grad=False):
     Sobol, with primary edges (forward only)."""
     m0 = scene.materials[0]
     if name == "screen_gradient":
-        opts = rtt.RenderOptions(num_samples=4, max_bounces=1,
-                                 sampler_type=rtt.SamplerType.sobol)
+        opts = rtt.RenderOptions(**SCREEN_OPTS)
         return rtt.screen_gradient_image(scene, opts, seed=SEED,
                                          engine=engine), None
     if name == "g_buffer":
@@ -2151,10 +2174,11 @@ def _sphere_diffuse(path):
     return path.startswith("materials/0/diffuse_reflectance")
 
 
-def train_losses(opts, mesh):
-    """TRAIN_STEPS steps of make_train_step (edge-sampled, SGD at TRAIN_LR,
-    seed SEED every step) on the sphere's diffuse, from TRAIN_START toward
-    the slice's render -> (losses, ms per step)."""
+def train_losses(opts, mesh, use_edge_sampling=True, profile_step=False):
+    """TRAIN_STEPS steps of make_train_step (SGD at TRAIN_LR, seed SEED
+    every step; edge-sampled, or continuous with use_edge_sampling=False)
+    on the sphere's diffuse, from TRAIN_START toward the slice's render ->
+    (losses, ms per step, the profile of one more step or None)."""
     dev = mesh.device
     with torch.no_grad():
         target = rtt.render_image(make_slice_scene(device=dev), opts,
@@ -2164,7 +2188,8 @@ def train_losses(opts, mesh):
                           specular_reflectance=[0.2, 0.2, 0.2],
                           roughness=[0.05], device=dev)))
     step = make_train_step(opts, mesh=mesh, learning_rate=TRAIN_LR,
-                           trainable=_sphere_diffuse)
+                           trainable=_sphere_diffuse,
+                           use_edge_sampling=use_edge_sampling)
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2173,19 +2198,40 @@ def train_losses(opts, mesh):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    return losses, step_ms
+    prof = None
+    if profile_step:
+        prof = profile_run("one train step", lambda: step(s, target, SEED),
+                           top=4)
+    return losses, step_ms, prof
 
 
 def gradient_run(scene, opts, mesh=None):
     """The slice's image and one counted gradient, then fwd+bwd (median of
     3; under a mesh every rank starts each run together) and the peak
     memory of those runs; through the sharded entry points over `mesh`
-    when one is given.  Returns CPU tensors and numbers."""
+    when one is given.  Where the call replays graphs (a card, outside
+    graphs.disable(), no group or an NCCL one), the cache is emptied first
+    and the launches are the kernel nodes that the gradient's captures
+    record; else the launches of one eager gradient.  Returns CPU tensors
+    and numbers."""
+    graphed = graphs.replays(scene.camera.device, mesh)
+    if graphed:
+        graphs.clear()
     with torch.no_grad():
         img = (rtt.render_image(scene, opts, seed=SEED) if mesh is None else
                render_image_sharded(scene, opts, seed=SEED, mesh=mesh))
-    gradient(scene, opts, mesh=mesh)  # warm-up
-    grads, launches = counted(lambda: gradient(scene, opts, mesh=mesh))
+    before = dict(graphs.CAPTURES)
+    gradient(scene, opts, mesh=mesh)  # warm-up (graphed: the captures)
+    if graphed:
+        _check({k: graphs.CAPTURES[k] - before[k] for k in before}
+               == {"forward": 1, "backward": 1},
+               "the graphed gradient did not capture once")
+        grads = gradient(scene, opts, mesh=mesh)
+        launches = {k: sum(graphs.LAST_CAPTURE[g]["launches"][k]
+                           for g in ("forward", "backward"))
+                    for k in ic.LAUNCHES}
+    else:
+        grads, launches = counted(lambda: gradient(scene, opts, mesh=mesh))
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -2197,7 +2243,8 @@ def gradient_run(scene, opts, mesh=None):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return {"image": img.cpu(), "grads": [g.cpu() for g in grads],
-            "launches": launches, "walls": walls,
+            "launches": launches, "walls": walls, "graphed": graphed,
+            "captures": {k: graphs.CAPTURES[k] - before[k] for k in before},
             "ms": statistics.median(walls),
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
 
@@ -2205,25 +2252,26 @@ def gradient_run(scene, opts, mesh=None):
 def _rank(devices, cells, train):
     """One spawned rank (parallel.spawn.run_ranks) on
     devices[rank]: gradient_run over the mesh for each (resolution, spp)
-    cell; with train, also a profile of one gradient and the train step's
-    losses (on the first cell)."""
+    cell, on the route the group's backend picks (gloo: eager; NCCL:
+    graphed); with train, also a profile of one gradient and the train
+    step's losses (on the first cell)."""
     dev = torch.device(devices[dist.get_rank()])
     torch.cuda.set_device(dev)
     mesh = make_mesh(dev)
     out = []
-    with eager_routes():
-        for res, spp in cells:
-            scene = make_slice_scene(res=res, device=dev)
-            opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
-            out.append(gradient_run(scene, opts, mesh))
-            if train:
-                dist.barrier()
-                profile_run(f"rank {mesh.rank} of {mesh.world}: one gradient "
-                            "evaluation",
-                            lambda: gradient(scene, opts, mesh=mesh), top=4)
-                out[-1]["losses"], out[-1]["step_ms"] = train_losses(opts,
-                                                                     mesh)
-            del scene
+    for res, spp in cells:
+        scene = make_slice_scene(res=res, device=dev)
+        opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+        out.append(gradient_run(scene, opts, mesh))
+        if train:
+            dist.barrier()
+            profile_run(f"rank {mesh.rank} of {mesh.world}: one gradient "
+                        "evaluation",
+                        lambda: gradient(scene, opts, mesh=mesh), top=4)
+            out[-1]["losses"], out[-1]["step_ms"], _ = train_losses(opts,
+                                                                    mesh)
+        del scene
+        graphs.clear()
     return out
 
 
@@ -2261,17 +2309,56 @@ def _walls(ws):
     return ", ".join(f"{w:.2f}" for w in ws)
 
 
+def nccl_train(opts, mesh, refs, smi_line):
+    """TRAIN_STEPS steps of make_train_step over the one-rank NCCL `mesh`,
+    which replay graphs, edge-sampled and continuous, against one
+    process's eager steps (refs: label -> losses): the loss falls at every
+    step and matches within TRAIN_RTOL.  The step's wall (the first step
+    captures) and the CUDA kernels and idle share of one more step.
+    Returns label -> row."""
+    rows = {}
+    for label, edges in (("edge-sampled", True), ("continuous", False)):
+        before = dict(graphs.CAPTURES)
+        losses, ms, prof = train_losses(opts, mesh, edges, profile_step=True)
+        captures = {k: graphs.CAPTURES[k] - before[k] for k in before}
+        print(f"[sharded] one-rank NCCL group, graphed {label} train step: "
+              f"losses {losses}, one process (eager) {refs[label]}; "
+              f"captures {captures}; step ms {_walls(ms)} (the first "
+              f"captures), median of the later {statistics.median(ms[1:]):.3f}"
+              f"; {smi_line}", flush=True)
+        _check(all(b < a for a, b in zip(losses, losses[1:])),
+               f"graphed {label} train: the loss did not fall: {losses}")
+        _check(np.allclose(losses, refs[label], rtol=TRAIN_RTOL, atol=0.0),
+               f"graphed {label} train: losses differ from one process's")
+        _check(captures["backward"] == 1,
+               f"graphed {label} train: captures {captures}")
+        rows[label] = {"losses": losses, "step_ms": ms,
+                       "captures": captures}
+        if prof is not None:
+            rows[label].update(cuda_kernels=prof["kernels"],
+                               busy_ms=prof["busy_ms"], idle=prof["idle"])
+    return rows
+
+
 def phase_sharded(scene, opts, smi_line):
     """The slice over two ranks on the one card (gloo: NCCL refuses two
     ranks on one device) and over a one-rank NCCL group, against one
     process: image, gradients, the train step, launches per rank, peak
-    memory per rank and fwd+bwd.  Returns the row for the kernels line."""
+    memory per rank and fwd+bwd.  One process, the NCCL group's eager
+    route and the gloo pair run eagerly (the pair by its backend: gloo
+    collectives are host calls, so its calls capture nothing); then the
+    NCCL group's render_sharded replays graphs with its collectives
+    captured (graph_route) and is held against one process too, and
+    make_train_step's graphed steps, edge-sampled and continuous, against
+    one process's.  Returns the row for the kernels line."""
     dev = scene.camera.device
     lap = _Lap(time.perf_counter())
-    ref = gradient_run(scene, opts)
-    profile_run("one process: one gradient evaluation",
-                lambda: gradient(scene, opts), top=4)
-    ref_losses, ref_step_ms = train_losses(opts, make_mesh(dev))
+    with graphs.disable():
+        ref = gradient_run(scene, opts)
+        profile_run("one process: one gradient evaluation",
+                    lambda: gradient(scene, opts), top=4)
+        ref_losses, ref_step_ms, _ = train_losses(opts, make_mesh(dev))
+        ref_cont, _, _ = train_losses(opts, make_mesh(dev), False)
     lap("sharded: one process")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2279,16 +2366,35 @@ def phase_sharded(scene, opts, smi_line):
             "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
             world_size=1)
         try:
-            nccl = gradient_run(scene, opts, make_mesh(dev))
+            mesh = make_mesh(dev)
+            with graphs.disable():
+                nccl = gradient_run(scene, opts, mesh)
+            lap("sharded: one-rank NCCL group, eager")
+            graphs.clear()
+            graphed = graph_route(
+                "render_sharded (one-rank NCCL group)",
+                (scene, GRAD_LEAVES, slice_leaves,
+                 lambda s, sd: render_sharded(s, opts, seed=sd, mesh=mesh)),
+                smi_line, tag="sharded")
+            with torch.no_grad():
+                img = render_image_sharded(scene, opts, seed=SEED, mesh=mesh)
+            _compare_sharded("sharded", "one-rank NCCL group, graphed", {
+                "image": img.cpu(), "launches": graphed["nodes_total"],
+                "grads": [g.cpu() for g in gradient(scene, opts, mesh=mesh)]},
+                ref)
+            lap("sharded: one-rank NCCL group, graphed")
+            train = nccl_train(opts, mesh, {"edge-sampled": ref_losses,
+                                            "continuous": ref_cont}, smi_line)
+            lap("sharded: one-rank NCCL group, graphed train steps")
         finally:
             dist.destroy_process_group()
-    print(f"[sharded] one-rank NCCL group: launches {nccl['launches']}",
-          flush=True)
+            graphs.clear()
+    print(f"[sharded] one-rank NCCL group (eager): launches "
+          f"{nccl['launches']}", flush=True)
     _check((nccl["launches"]["closest_hit"], nccl["launches"]["any_hit"])
            == (32, 16), f"one-rank NCCL launches {nccl['launches']}, want "
            "32 + 16")
     _compare_sharded("sharded", "one-rank NCCL group", nccl, ref)
-    lap("sharded: one-rank NCCL group")
 
     ranks = [cells[0] for cells in spawn_ranks(
         SHARD_WORLD, [str(dev)] * SHARD_WORLD, [SLICE_CELL], True, "gloo")]
@@ -2296,10 +2402,13 @@ def phase_sharded(scene, opts, smi_line):
     _compare_ranks("sharded", "one card", ranks, ref)
     for r, out in enumerate(ranks):
         got = (out["launches"]["closest_hit"], out["launches"]["any_hit"])
-        print(f"[sharded] rank {r} of {SHARD_WORLD} (gloo, one card): "
-              f"launches per gradient {out['launches']}, predicted "
-              f"{SHARD_LAUNCHES}; peak memory {out['peak_mib']} MiB (one "
-              f"process: {ref['peak_mib']} MiB)", flush=True)
+        print(f"[sharded] rank {r} of {SHARD_WORLD} (gloo, one card): eager "
+              f"by the group's backend (graphed {out['graphed']}, captures "
+              f"{out['captures']}); launches per gradient {out['launches']}, "
+              f"predicted {SHARD_LAUNCHES}; peak memory {out['peak_mib']} MiB "
+              f"(one process: {ref['peak_mib']} MiB)", flush=True)
+        _check(not out["graphed"] and not any(out["captures"].values()),
+               f"rank {r}: a gloo rank captured {out['captures']}")
         _check(got == SHARD_LAUNCHES, f"rank {r} launches {got}, want "
                f"{SHARD_LAUNCHES}")
         losses = out["losses"]
@@ -2314,7 +2423,9 @@ def phase_sharded(scene, opts, smi_line):
     print(f"[sharded] fwd+bwd 256x256 4spp 1 bounce: one process median "
           f"{ref['ms']:.3f} ms (all: {_walls(ref['walls'])}); {SHARD_WORLD} "
           f"ranks on one card (slowest rank) median {two_ms:.3f} ms (all: "
-          f"{_walls(slowest)}); train step ms one process "
+          f"{_walls(slowest)}); one-rank NCCL group eager median "
+          f"{nccl['ms']:.3f} ms, graphed median {graphed['graphed_ms']:.3f} "
+          f"ms; train step ms one process "
           f"{[round(x, 1) for x in ref_step_ms]}, rank 0 "
           f"{[round(x, 1) for x in ranks[0]['step_ms']]}; {smi_line}",
           flush=True)
@@ -2324,7 +2435,11 @@ def phase_sharded(scene, opts, smi_line):
             "peak_mib_one_process": ref["peak_mib"],
             "gradient_ms_one_process": ref["ms"],
             "gradient_ms_two_ranks": two_ms,
-            "train_losses": ranks[0]["losses"]}
+            "train_losses": ranks[0]["losses"],
+            "nccl_graphed": {k: graphed.get(k) for k in (
+                "eager_ms", "graphed_ms", "capture_s", "max_image_diff",
+                "max_rel_l2", "busy_ms", "idle", "nodes_total")},
+            "nccl_train": train}
 
 
 # ----------------------------------------------------------------------
@@ -2338,42 +2453,13 @@ GRAPH_NODES = {"closest_hit": 32, "any_hit": 16}  # per graphed gradient
 GRAPH_BIG = ((1024, 1024), 4)  # the device-bound contrast
 
 
-@contextlib.contextmanager
-def eager_routes():
-    """Inside, rtt.render, rtt.render_image and the utilities' render run
-    eagerly: render as rtt.make_render's function, render_image as its
-    sample loop.  Every phase before [graph] (and --memory's live and
-    remat cells, --cards) runs inside it, so that its launch counts,
-    captured batches and decision traces see each launch from Python and
-    its numbers stay comparable with the eager render's."""
-    from redner_tpu_torch import render_utils
-    from redner_tpu_torch.render import _render_image_impl
-
-    saved = rtt.render, rtt.render_image, render_utils._render
-
-    def render(scene, options, seed=0, engine=None, pixel_sharding=None):
-        return rtt.make_render(options, pixel_sharding,
-                               engine=engine)(scene, seed)
-
-    def render_image(scene, options, seed=0, engine=None,
-                     pixel_sharding=None):
-        if pixel_sharding is not None:
-            return saved[1](scene, options, seed, engine, pixel_sharding)
-        dev = scene.shapes[0].vertices.device
-        return _render_image_impl(scene, options,
-                                  sampler_mod._as_u32(seed, dev), engine)
-
-    rtt.render, rtt.render_image, render_utils._render = (
-        render, render_image, render)
-    try:
-        yield
-    finally:
-        rtt.render, rtt.render_image, render_utils._render = saved
-
-
 def img_grads(fn, leaves):
     """fn()'s image and the gradients of sum(image * w) w.r.t. leaves, w
-    weighting the channels 0.5..1.5."""
+    weighting the channels 0.5..1.5; with no leaves, fn() under no_grad
+    and no gradients (a forward-only route)."""
+    if not leaves:
+        with torch.no_grad():
+            return fn(), []
     for x in leaves:
         x.requires_grad_(True)
     try:
@@ -2388,8 +2474,12 @@ def img_grads(fn, leaves):
 
 def graph_paths(scene, opts, env, aov):
     """name -> (scene, leaf names, leaves of a scene, render(scene, seed)):
-    the slice, envtex and G-buffer gradients and one remat gradient."""
+    the slice, envtex and G-buffer gradients and one remat gradient
+    (render's graphs); the slice's continuous gradient through
+    render_image (its autograd graphs) and the aov scene's screen
+    gradient (forward only, no leaves)."""
     remat = rtt.RenderOptions(num_samples=4, max_bounces=1, remat=True)
+    screen = rtt.RenderOptions(**SCREEN_OPTS)
     return {
         "slice": (scene, GRAD_LEAVES, slice_leaves,
                   lambda s, sd: rtt.render(s, opts, seed=sd)),
@@ -2400,46 +2490,59 @@ def graph_paths(scene, opts, env, aov):
                                                        seed=sd)),
         "remat": (scene, GRAD_LEAVES, slice_leaves,
                   lambda s, sd: rtt.render(s, remat, seed=sd)),
+        "render_image_grad": (scene, GRAD_LEAVES, slice_leaves,
+                              lambda s, sd: rtt.render_image(s, opts,
+                                                             seed=sd)),
+        "screen_gradient": (aov, (), lambda s: [],
+                            lambda s, sd: rtt.screen_gradient_image(
+                                s, screen, seed=sd)),
     }
 
 
-def sync_check(paths):
-    """The eager slice, envtex and G-buffer gradients under
+def sync_check(paths, names, warm=True):
+    """The eager routes of paths[name] for each name under
     torch.cuda.set_sync_debug_mode("error"): a host sync raises (after one
-    warm run, which makes the kept constants)."""
-    with eager_routes():
-        for name in ("slice", "envtex", "g_buffer"):
+    warm run, which makes the kept constants and, under a group, the
+    communicator; warm=False when the caller ran one)."""
+    with graphs.disable():
+        for name in names:
             scene, _, leaves_of, fn = paths[name]
-            img_grads(lambda: fn(scene, SEED), leaves_of(scene))
+            if warm:
+                img_grads(lambda: fn(scene, SEED), leaves_of(scene))
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 img_grads(lambda: fn(scene, SEED), leaves_of(scene))
             except RuntimeError as e:
-                print(f"FAIL: [graph] the eager {name} gradient synchronises "
+                print(f"FAIL: [graph] the eager {name} route synchronises "
                       f"the host: {e}", flush=True)
                 raise
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-            print(f"[graph] sync check: the eager {name} gradient ran under "
+            print(f"[graph] sync check: the eager {name} route ran under "
                   "sync debug mode \"error\" with no synchronising call",
                   flush=True)
 
 
-def graph_vs_eager(name, path, smi_line):
+def graph_vs_eager(name, path, smi_line, tag="graph"):
     """One path graphed against eager at seeds 11 and 12 and after an
-    in-place update of the first leaf (the vertices, x 1.01): the image
-    within GRAPH_IMAGE_ATOL on every pixel, each leaf's gradient within
+    in-place update of the sphere's vertices (x 1.01): the image within
+    GRAPH_IMAGE_ATOL on every pixel, each leaf's gradient within
     GRAPH_L2_MAX relative L2, the eager-vs-eager value beside it (the
-    index backward's atomics); the first call captures one forward and
-    one backward graph and a later call captures nothing.  Then fwd+bwd,
-    graphed and eager (median of 3 each), while the key is cached.
+    index backward's atomics); a forward-only path (no leaves; the screen
+    gradient, whose primary-edge scatter sums with atomics) holds its
+    image to GRAPH_L2_MAX relative L2, its max |diff| printed beside
+    eager vs eager.  The first call captures one forward graph (and one
+    backward for a gradient) and a later call captures nothing.  Then the
+    wall, graphed and eager (median of 3 each), while the key is cached.
     Returns the row."""
     scene, names, leaves_of, fn = path
+    grad = bool(names)
     row = {"captures": [], "capture_s": None, "max_image_diff": 0.0,
            "max_rel_l2": 0.0}
-    keep = leaves_of(scene)[0].detach().clone()
+    vertices = scene.shapes[0].vertices
+    keep = vertices.detach().clone()
     steps = (("seed 11", SEED), ("seed 12", SEED + 1),
              ("leaf update", SEED + 1))
     if name == "remat":
@@ -2448,64 +2551,80 @@ def graph_vs_eager(name, path, smi_line):
     for step, seed in steps:
         if step == "leaf update":
             with torch.no_grad():
-                leaves_of(scene)[0].mul_(1.01)
+                vertices.mul_(1.01)
         before = dict(graphs.CAPTURES)
         g_img, g_grads = img_grads(lambda: fn(scene, seed), leaves_of(scene))
         torch.cuda.synchronize()
         got = {k: graphs.CAPTURES[k] - before[k] for k in before}
         row["captures"].append(got)
         if row["capture_s"] is None:
+            kinds = [k for k in ("forward", "backward") if got[k]]
             row["capture_s"] = {k: graphs.LAST_CAPTURE[k]["seconds"]
-                                for k in ("forward", "backward")}
+                                for k in kinds}
             row["nodes"] = {k: graphs.LAST_CAPTURE[k]["launches"]
-                            for k in ("forward", "backward")}
-        with eager_routes():
+                            for k in kinds}
+        with graphs.disable():
             e_img, e_grads = img_grads(lambda: fn(scene, seed),
                                        leaves_of(scene))
             if ee is None:
-                _, e2 = img_grads(lambda: fn(scene, seed), leaves_of(scene))
+                e2_img, e2 = img_grads(lambda: fn(scene, seed),
+                                       leaves_of(scene))
                 ee = [rel_l2(a, b) for a, b in zip(e2, e_grads)]
+                ee_img = float((e2_img - e_img).abs().max())
         diff = float((g_img - e_img).abs().max())
-        l2 = [rel_l2(a, b) for a, b in zip(g_grads, e_grads)]
         row["max_image_diff"] = max(row["max_image_diff"], diff)
+        if grad:
+            l2 = [rel_l2(a, b) for a, b in zip(g_grads, e_grads)]
+            print(f"[{tag}] {name} {step}: captures {got}; image max "
+                  f"|graphed - eager| {diff:.3e}; gradient relative L2 "
+                  "graphed vs eager " + ", ".join(
+                      f"{n} {x:.3e} (eager vs eager {y:.3e})"
+                      for n, x, y in zip(names, l2, ee)), flush=True)
+            _check(diff <= GRAPH_IMAGE_ATOL,
+                   f"{name} {step}: graphed image off eager by {diff:.3e}")
+            _check(all(bool(torch.isfinite(g).all()) for g in g_grads),
+                   f"{name} {step}: non-finite graphed gradient")
+        else:
+            l2 = [rel_l2(g_img, e_img)]
+            print(f"[{tag}] {name} {step}: captures {got}; image relative "
+                  f"L2 graphed vs eager {l2[0]:.3e}, max |graphed - eager| "
+                  f"{diff:.3e} (eager vs eager {ee_img:.3e})", flush=True)
+            _check(bool(torch.isfinite(g_img).all()),
+                   f"{name} {step}: non-finite graphed image")
         row["max_rel_l2"] = max(row["max_rel_l2"], max(l2))
-        print(f"[graph] {name} {step}: captures {got}; image max |graphed - "
-              f"eager| {diff:.3e}; gradient relative L2 graphed vs eager "
-              + ", ".join(f"{n} {x:.3e} (eager vs eager {y:.3e})"
-                          for n, x, y in zip(names, l2, ee)), flush=True)
-        _check(diff <= GRAPH_IMAGE_ATOL,
-               f"{name} {step}: graphed image off eager by {diff:.3e}")
         _check(max(l2) <= GRAPH_L2_MAX,
-               f"{name} {step}: graphed gradient off eager ({max(l2):.3e})")
-        _check(all(bool(torch.isfinite(g).all()) for g in g_grads),
-               f"{name} {step}: non-finite graphed gradient")
+               f"{name} {step}: graphed result off eager ({max(l2):.3e})")
     with torch.no_grad():
-        leaves_of(scene)[0].copy_(keep)
-    _check(row["captures"][0] == {"forward": 1, "backward": 1},
+        vertices.copy_(keep)
+    want = {"forward": 1, "backward": int(grad)}
+    _check(row["captures"][0] == want,
            f"{name}: the first call captured {row['captures'][0]}")
     _check(all(c == {"forward": 0, "backward": 0}
                for c in row["captures"][1:]),
            f"{name}: a later call captured again: {row['captures']}")
-    print(f"[graph] {name}: capture seconds (warm-up included) "
+    print(f"[{tag}] {name}: capture seconds (warm-up included) "
           f"{row['capture_s']}; kernel nodes {row['nodes']}", flush=True)
     run = lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene))
     row["graphed_ms"], g_walls = _wall_ms(run)
-    with eager_routes():
+    with graphs.disable():
         row["eager_ms"], e_walls = _wall_ms(run)
-    print(f"[graph] {name} fwd+bwd: eager median {row['eager_ms']:.3f} ms "
+    what = "fwd+bwd" if grad else "forward"
+    print(f"[{tag}] {name} {what}: eager median {row['eager_ms']:.3f} ms "
           f"(all: {_walls(e_walls)}), graphed median {row['graphed_ms']:.3f} "
           f"ms (all: {_walls(g_walls)}); {smi_line}", flush=True)
     return row
 
 
-def graph_batches(path):
+def graph_batches(path, tag="graph", cap=None):
     """Both kernels against their plain versions on every batch of one
-    eager gradient of `path`, through the device-count interface: no lane
-    may differ.  Returns (batches, lanes, lanes off)."""
+    eager run of `path` (cap: capture_launches of one, when the caller
+    has it), through the device-count interface: no lane may differ.
+    Returns (batches, lanes, lanes off)."""
     scene, _, leaves_of, fn = path
-    with eager_routes():
-        cap = capture_launches(
-            lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene)))
+    if cap is None:
+        with graphs.disable():
+            cap = capture_launches(
+                lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene)))
     fs = rtt.flatten_scene(scene)
     lanes = off = 0
     with torch.no_grad():
@@ -2520,10 +2639,106 @@ def graph_batches(path):
                            != plain.anyhit_plain(fs.layout.Tc, rb)[0]).sum())
             lanes += rb.n
             off += bad
-    print(f"[graph] kernels vs plain through the device count: {len(cap)} "
+    print(f"[{tag}] kernels vs plain through the device count: {len(cap)} "
           f"captured batches, {lanes} lanes, {off} lanes off", flush=True)
     _check(off == 0, f"{off} lanes off the plain versions")
     return len(cap), lanes, off
+
+
+HOST_META = ("torch/_refs", "torch/_prims", "torch/_decomp", "torch/_library",
+             "torch/_dynamo", "torch/_meta_registrations",
+             "torch/fx/experimental/symbolic_shapes")
+
+
+def host_profile(label, run, top=8):
+    """cProfile of one run on the host: its seconds (under the profiler),
+    the part in PyTorch's Python reference and meta functions (HOST_META:
+    where forward AD's ZeroTensor tangents compute their result shapes),
+    the calls into torch._refs, the entries into the reference wrappers
+    from torch.maximum and torch.minimum, and the functions with the most
+    own time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof).stats
+    total = sum(v[2] for v in st.values())
+    meta = sum(v[2] for k, v in st.items()
+               if any(m in k[0] for m in HOST_META))
+    refs = sum(v[0] for k, v in st.items() if "torch/_refs" in k[0])
+    minmax = sum(c[1] for k, v in st.items()
+                 if "_prims_common/wrappers.py" in k[0]
+                 for caller, c in v[4].items()
+                 if caller[2] in ("<built-in method torch.maximum>",
+                                  "<built-in method torch.minimum>"))
+    print(f"[host] {label} under cProfile: {total:.3f} s of host time, "
+          f"{meta:.3f} s ({meta / total:.3f}) in PyTorch's Python reference "
+          f"and meta functions, {refs} calls into torch._refs, {minmax} "
+          f"entries from torch.maximum/minimum", flush=True)
+    for (path, line, fn), v in sorted(st.items(), key=lambda kv: -kv[1][2])[
+            :top]:
+        print(f"[host]   {v[2]:8.3f} s own {v[0]:8d}x  "
+              f"{os.path.basename(path)}:{line}({fn})", flush=True)
+    return {"host_s": total, "meta_s": meta, "refs_calls": refs,
+            "minmax_entries": minmax}
+
+
+def graph_route(name, path, smi_line, tag="graph", rerenders=False,
+                host=False):
+    """A route graphed since the whole port is compiled (the continuous
+    gradient, the screen gradient, a sharded render over NCCL), checked
+    as [graph] checks the slice's gradient: its eager route under sync
+    debug mode "error"; the route's launch counts zeroed just before its
+    first graphed call and read after the graphed-vs-eager checks
+    (graph_vs_eager); the kernel nodes counted at capture and in a
+    profile of one graphed run, each equal to the eager route's launches
+    (twice them with `rerenders`: render_image's graphed backward
+    re-renders the forward under autograd, where eager autograd keeps the
+    forward's residuals); the device's busy and idle share of that run;
+    both kernels against their plain versions on every batch of the eager
+    route.  One eager run gives the launches and the batches and warms
+    the sync check; with `host`, under host_profile.  Returns the row."""
+    scene, _, leaves_of, fn = path
+    run = lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene))
+    first = []
+    with graphs.disable():
+        eager_run = lambda: first.append(
+            counted(lambda: capture_launches(run)))
+        host_row = (host_profile(f"one eager {name} run", eager_run) if host
+                    else eager_run())
+    cap, eager = first[0]
+    sync_check({name: path}, [name], warm=False)
+    want = {k: v * (2 if rerenders else 1) for k, v in eager.items()}
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    row = graph_vs_eager(name, path, smi_line, tag)
+    main = dict(ic.LAUNCHES)
+    nodes = {k: sum(n[k] for n in row["nodes"].values()) for k in eager}
+    print(f"[{tag}] {name} launches (capture and the eager comparisons "
+          f"included) {main}; kernel nodes at capture {nodes}, the eager "
+          f"route's launches {eager}, predicted nodes {want}", flush=True)
+    _check(all(v > 0 for v in main.values()),
+           f"{name}: a kernel did not launch on the graphed route: {main}")
+    _check(nodes == want, f"{name}: kernel nodes {nodes}, want {want}")
+    row.update(eager_launches=eager, nodes_total=nodes)
+    prof = profile_run(f"one graphed {name} run", run, top=6)
+    if prof is not None:
+        replay = {k: sum(c for n, c in prof["by_name"].items()
+                         if f"{k}_kernel" in n) for k in eager}
+        row.update(busy_ms=prof["busy_ms"], idle=prof["idle"],
+                   cuda_kernels=prof["kernels"], replay_nodes=replay)
+        print(f"[{tag}] {name}: kernel nodes in one graphed run's replays "
+              f"(profiler) {replay}", flush=True)
+        _check(replay == want,
+               f"{name}: profiled kernel nodes {replay}, want {want}")
+    row["batches"] = graph_batches(path, tag, cap)
+    if host:
+        row["host"] = host_row
+    return row
 
 
 def phase_graph(scene, opts, smi_line):
@@ -2537,7 +2752,8 @@ def phase_graph(scene, opts, smi_line):
     env = make_envtex_scene(device=dev)
     aov = make_envtex_scene(generic=16, device=dev)
     paths = graph_paths(scene, opts, env, aov)
-    sync_check(paths)
+    render_keys = ("slice", "envtex", "g_buffer", "remat")
+    sync_check(paths, render_keys[:3])
     lap("graph: sync check")
 
     # The main path through the graphs: the counts zeroed before the first
@@ -2580,7 +2796,7 @@ def phase_graph(scene, opts, smi_line):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         if label == "eager":
-            with eager_routes():
+            with graphs.disable():
                 run()
         else:
             run()
@@ -2594,7 +2810,7 @@ def phase_graph(scene, opts, smi_line):
     print(f"[graph] slice gradient peak memory: eager "
           f"{mem['eager_peak_mib']:.1f} MiB, graphed replay "
           f"{mem['graphed_peak_mib']:.1f} MiB; the graph cache's "
-          f"{len(paths)} gradient keys ({', '.join(paths)}) hold "
+          f"{len(render_keys)} gradient keys ({', '.join(render_keys)}) hold "
           f"{mem['cache_holds_mib']:.1f} MiB of reserved memory", flush=True)
     lap("graph: memory")
 
@@ -2607,7 +2823,7 @@ def phase_graph(scene, opts, smi_line):
             if step == "leaf update":
                 scene.shapes[0].vertices.mul_(1.01)
             g = rtt.render_image(scene, opts, seed=seed)
-            with eager_routes():
+            with graphs.disable():
                 e = rtt.render_image(scene, opts, seed=seed)
             diff = float((g - e).abs().max())
             fwd["max_image_diff"] = max(fwd["max_image_diff"], diff)
@@ -2618,7 +2834,7 @@ def phase_graph(scene, opts, smi_line):
         scene.shapes[0].vertices.copy_(keep)
         fwd["graphed_ms"], g_walls = _wall_ms(
             lambda: rtt.render_image(scene, opts, seed=SEED), 5)
-        with eager_routes():
+        with graphs.disable():
             fwd["eager_ms"], e_walls = _wall_ms(
                 lambda: rtt.render_image(scene, opts, seed=SEED), 5)
     print(f"[graph] forward 256x256 4spp: eager median {fwd['eager_ms']:.3f} "
@@ -2629,7 +2845,7 @@ def phase_graph(scene, opts, smi_line):
 
     # The front end's five Adam steps, graphed against eager.
     fe = frontend_slice_scene()
-    with eager_routes():
+    with graphs.disable():
         e_losses, e_ms = frontend_adam(fe, dev, "graph eager", smi_line)
     g_losses, g_ms = frontend_adam(fe, dev, "graph graphed", smi_line)
     print(f"[graph] front end Adam losses eager {e_losses}, graphed "
@@ -2643,13 +2859,21 @@ def phase_graph(scene, opts, smi_line):
     batches = graph_batches(paths["slice"])
     lap("graph: kernels vs plain")
 
+    # The continuous gradient (render_image under autograd) and the screen
+    # gradient, each its own key and route.
+    for name in ("render_image_grad", "screen_gradient"):
+        rows[name] = graph_route(name, paths[name], smi_line,
+                                 rerenders=name == "render_image_grad",
+                                 host=name == "screen_gradient")
+        lap(f"graph: {name}")
+
     # The device-bound contrast: 1024x1024 x 4 spp.
     (res, spp) = GRAPH_BIG
     big = make_slice_scene(res=res, device=dev)
     o = rtt.RenderOptions(num_samples=spp, max_bounces=1)
     run = lambda: img_grads(lambda: rtt.render(big, o, seed=SEED),
                             slice_leaves(big))
-    with eager_routes():
+    with graphs.disable():
         big_e, big_e_walls = _wall_ms(run, 1)
     first, _ = _wall_ms(run, 1)
     big_g, big_g_walls = _wall_ms(run, 1)
@@ -2849,7 +3073,7 @@ def memory_main():
         return 1
     phase_build()
     smi_line = phase_device()
-    with eager_routes():
+    with graphs.disable():
         phase_memory(smi_line)
     graphed_memory(smi_line)
     print(smi_line)
@@ -2864,10 +3088,12 @@ def memory_main():
 def phase_cards(world, smi_lines):
     """The slice's gradient split over `world` ranks, one card each (NCCL),
     against one process on the first card, per CARDS_CELLS cell
-    (resolution, spp): pixels within atol 1e-6, each leaf's gradient within
-    relative L2 1e-4, the ranks' gradients equal; launches and peak memory
-    per rank; fwd+bwd of one process against the ranks' (the slowest
-    rank's, median of 3).  Returns the rows for the JSON line."""
+    (resolution, spp), both replaying graphs (the ranks' with their
+    collectives captured): pixels within atol 1e-6, each leaf's gradient
+    within relative L2 1e-4, the ranks' gradients equal; kernel nodes (at
+    capture) and peak memory per rank; fwd+bwd of one graphed card
+    against the ranks' (the slowest rank's, median of 3).  Returns the
+    rows for the JSON line."""
     dev = torch.device("cuda", 0)
     lap = _Lap(time.perf_counter())
     refs = []
@@ -2889,7 +3115,9 @@ def phase_cards(world, smi_lines):
         per_rank = [r_[i] for r_ in ranks]
         _compare_ranks("cards", cell, per_rank, ref)
         slowest = [max(w) for w in zip(*(out["walls"] for out in per_rank))]
-        row = {"cell": cell, "world": world,
+        _check(ref["graphed"] and all(out["graphed"] for out in per_rank),
+               f"{cell}: a run did not replay graphs")
+        row = {"cell": cell, "world": world, "graphed": True,
                "gradient_ms_one_process": ref["ms"],
                "gradient_ms_ranks": statistics.median(slowest),
                "launches_one_process": ref["launches"],
@@ -2897,11 +3125,11 @@ def phase_cards(world, smi_lines):
                "peak_mib_one_process": ref["peak_mib"],
                "peak_mib_per_rank": [out["peak_mib"] for out in per_rank]}
         rows.append(row)
-        print(f"[cards] {cell}: fwd+bwd one process median "
+        print(f"[cards] {cell}, graphed: fwd+bwd one card median "
               f"{ref['ms']:.3f} ms (all: {_walls(ref['walls'])}); {world} "
               f"ranks, one card each (slowest rank) median "
               f"{row['gradient_ms_ranks']:.3f} ms (all: {_walls(slowest)}); "
-              f"launches one process {ref['launches']}, per rank "
+              f"kernel nodes one card {ref['launches']}, per rank "
               f"{row['launches_per_rank'][0]}; peak MiB one process "
               f"{ref['peak_mib']}, per rank {row['peak_mib_per_rank']}",
               flush=True)
@@ -2924,8 +3152,7 @@ def cards_main(world):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    with eager_routes():
-        rows = phase_cards(world, smi.stdout.strip().splitlines())
+    rows = phase_cards(world, smi.stdout.strip().splitlines())
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"cards": rows}))
     print(smi_line)
@@ -2968,7 +3195,7 @@ def main():
     opts = rtt.RenderOptions(num_samples=4, max_bounces=1)
     lap = _Lap(t_start)
     lap("build, device, kernels")
-    with eager_routes():  # the phases of the eager render
+    with graphs.disable():  # the phases of the eager render
         launches = phase_render(scene, opts)
         lap("render")
         fwd_ms, per = phase_times(fs, scene, opts)
@@ -2988,8 +3215,8 @@ def main():
         lap("cameras")
         fe_rows = phase_frontend(scene, opts, smi_line)
         lap("frontend")
-        shard_row = phase_sharded(scene, opts, smi_line)
-        lap("sharded")
+    shard_row = phase_sharded(scene, opts, smi_line)
+    lap("sharded")
     graph_row = phase_graph(scene, opts, smi_line)
     lap("graph")
 
@@ -3049,7 +3276,11 @@ def main():
                 kind],
             **{k: shard_row[k] for k in (
                 "peak_mib_per_rank", "peak_mib_one_process",
-                "gradient_ms_one_process", "gradient_ms_two_ranks")}}
+                "gradient_ms_one_process", "gradient_ms_two_ranks")},
+            "nccl_graphed": {
+                **shard_row["nccl_graphed"],
+                "nodes_total": shard_row["nccl_graphed"]["nodes_total"][kind]},
+            "nccl_train": shard_row["nccl_train"]}
         kernels[-1]["graph"] = {
             "nodes_per_gradient": GRAPH_NODES[kind],
             "nodes_per_forward": graph_row["paths"]["slice"]["nodes"][
@@ -3058,10 +3289,14 @@ def main():
                 "replay_nodes", {}).get(kind),
             "gradient_ms": {name: {k: row.get(k) for k in (
                 "eager_ms", "graphed_ms", "capture_s", "max_image_diff",
-                "max_rel_l2")} for name, row in graph_row["paths"].items()},
+                "max_rel_l2", "busy_ms", "idle")}
+                for name, row in graph_row["paths"].items()},
             "forward_ms": {k: graph_row["forward"][k]
                            for k in ("eager_ms", "graphed_ms")},
             "idle": graph_row["paths"]["slice"].get("idle"),
+            "route_nodes": {name: row["nodes_total"][kind]
+                            for name, row in graph_row["paths"].items()
+                            if "nodes_total" in row},
             "memory": graph_row["memory"], "big": graph_row["big"]}
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {

@@ -24,9 +24,11 @@ timing helpers (`set_device`, `set_print_timing`, `timed`,
 (`redner_tpu_torch.parallel.sharding`, one process per card over
 torch.distributed); `RenderOptions(split_shadow_sweep=False)` and the
 `bruteforce` and `cluster` engines are accepted and run the split sweep
-and the plain queries; the compiled render: on a card, `render` and
-`render_image` replay cached CUDA graphs (`graphs.py`), and `make_render`
-gives the eager function.  torch.autograd through
+and the plain queries; the compiled render: on a card, `render`,
+`render_image` (with or without autograd), `screen_gradient_image` and the
+sharded entry points over NCCL replay cached CUDA graphs (`graphs.py`);
+`make_render` gives the eager function and `graphs.disable()` runs every
+entry point eagerly.  torch.autograd through
 `render_image` alone gives only the continuous gradients.
 
 The pyredner-style front end sits on top: `redner_tpu_torch.frontend`

@@ -15,6 +15,11 @@ in three kinds of all-reduce (SUM), each one code path for gloo and NCCL:
 
 A sharding whose group is None (a world of one, torch.distributed not
 initialised) makes every one of them a no-op.
+
+Each is capturable in a CUDA graph over an NCCL group (graphs.py): none
+reads the host, lane blocks are Python ints from the static mesh, and the
+tensors each rank reduces have shapes fixed by the scene's structure (the
+leaves' gradients are all-reduced with zeros in place of unused ones).
 """
 
 from __future__ import annotations
@@ -46,6 +51,14 @@ def _group(sharding):
     return None if sharding is None else sharding.group
 
 
+def capturable(sharding) -> bool:
+    """Whether a CUDA graph can hold this sharding's collectives: true
+    without a group and for an NCCL group, false for gloo (its collectives
+    run on the host)."""
+    group = _group(sharding)
+    return group is None or dist.get_backend(group) == dist.Backend.NCCL
+
+
 def all_reduce_sum(x: torch.Tensor, sharding) -> torch.Tensor:
     """x summed over the ranks of the sharding (a new tensor; x itself is
     left as it is)."""
@@ -59,7 +72,9 @@ def all_reduce_sum(x: torch.Tensor, sharding) -> torch.Tensor:
 
 def all_reduce_grads(grads, sharding):
     """Gradients summed over the ranks in one all-reduce (None entries
-    stay None; every rank must pass the same pattern of them)."""
+    stay None; every rank must pass the same pattern of them, which
+    render_grad._scene_grads ensures by passing zeros for unused
+    leaves)."""
     if _group(sharding) is None:
         return list(grads)
     have = [g for g in grads if g is not None]

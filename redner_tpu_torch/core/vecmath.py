@@ -11,6 +11,7 @@ its double-where guard.
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from redner_tpu_torch.core.consts import const
 
@@ -18,6 +19,29 @@ from redner_tpu_torch.core.consts import const
 def _like(x, ref):
     """A python scalar as a kept 0-d tensor on ref's dtype/device."""
     return const(x, ref.dtype, ref.device)
+
+
+def _operands(a, b):
+    """(a, b) for a maximum or minimum, b (a number or a tensor) as a
+    tensor.  Under forward-mode AD, when one side carries a tangent and
+    the other none, the other gets a zero tangent of its own: PyTorch
+    would make its tangent a ZeroTensor, whose arithmetic in maximum's
+    tangent formula computes its shapes through Python meta functions on
+    the host (the screen gradient's forward AD, PERF.md)."""
+    if not torch.is_tensor(b):
+        b = _like(b, a)
+    ta, tb = fwAD.unpack_dual(a).tangent, fwAD.unpack_dual(b).tangent
+    if ta is None and tb is not None:
+        a = fwAD.make_dual(a, _zero_tangent(a))
+    elif tb is None and ta is not None:
+        b = fwAD.make_dual(b, _zero_tangent(b))
+    return a, b
+
+
+def _zero_tangent(x):
+    if x.dim() == 0:
+        return const(0.0, x.dtype, x.device)
+    return torch.zeros_like(x)
 
 
 def dot(a, b):
@@ -61,15 +85,11 @@ def square(x):
 def maximum(a, b):
     """Elementwise max that splits the gradient on ties, as jnp.maximum
     does (torch.clamp passes it all to one side)."""
-    if not torch.is_tensor(b):
-        b = _like(b, a)
-    return torch.maximum(a, b)
+    return torch.maximum(*_operands(a, b))
 
 
 def minimum(a, b):
-    if not torch.is_tensor(b):
-        b = _like(b, a)
-    return torch.minimum(a, b)
+    return torch.minimum(*_operands(a, b))
 
 
 def clip(x, lo, hi):

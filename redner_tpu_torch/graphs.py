@@ -1,32 +1,65 @@
-"""The compiled render: `render` and `render_image` on a card replayed as
+"""The compiled render: every entry point of the port on a card replayed as
 cached CUDA graphs, the port's counterpart of the JAX package's jit caches
-(redner_tpu/render_grad.py `_render_cache`, :186-205, and
-redner_tpu/render.py `_render_image_jitted`, :1035-1053).
+(redner_tpu/render_grad.py `_render_cache`, :186-205, with or without a
+pixel sharding; redner_tpu/render.py `_render_image_jitted`, :1035-1053,
+and jax.grad of it; redner_tpu/parallel/sharding.py `make_train_step`'s
+jit, :125; redner_tpu/screen_gradient.py's scan of jvps, :30-75).
 
 A Program holds one key's graphs:
 
-  * forward: render_image's sample loop on static input tensors, the image
-    in a static buffer;
-  * backward (render only, captured at the first backward): the whole
-    edge-sampled backward (render_grad._scene_grads: the re-render under
-    autograd with the fused secondary surrogate, the primary-edge pass and
-    the inner autograd.grad), the gradients in static buffers.
+  * forward: a forward-only body on static input tensors, its result in a
+    static buffer: render_image's sample loop ("render", "render_image",
+    "render_image_grad"), or the screen gradient's jvps and primary-edge
+    scatter ("screen_gradient");
+  * backward (captured at the first backward): render's whole edge-sampled
+    backward (render_grad._scene_grads: the re-render under autograd with
+    the fused secondary surrogate, the primary-edge pass and the inner
+    autograd.grad), or for "render_image_grad" the same body with both
+    edge samplers off at the forward's own options and seed (autograd
+    through render_image); the gradients in static buffers.
 
 Inputs: every tensor of the scene (scene.scene_tensors: float leaves and
 integer arrays alike, so a scene of the same shapes with other indices
 replays as itself) and the seed, an int64 device tensor.  A call copies
 them into the program's static tensors and replays.  The key holds what
-the graphs bake in, as JAX holds static arguments and aux data: the
-function, the options, the correlated flag, the engine, the scene's
-structure (scene.scene_structure: shapes, dtypes, devices, requires_grad
-and every non-tensor field) and the estimator's module constants.
+the graphs bake in, as JAX holds static arguments and aux data: the kind,
+the options, the correlated flag, the engine, the scene's structure
+(scene.scene_structure: shapes, dtypes, devices, requires_grad and every
+non-tensor field), the estimator's module constants and the mesh of a
+pixel sharding: its backend, rank, world size, device and process group.
+The key holds the group itself, so no two groups share a key, and a key
+whose group was destroyed is dropped at the next lookup (its graphs hold
+NCCL kernels of a communicator that is gone).
 
 Capture: the body runs once eagerly on a side stream (the warm-up builds
-the kernels and makes every kept constant), the allocator's cached blocks
-are freed, then the body is captured.  A capture that fails raises, with
-the op that broke it in the exception chain; nothing falls back to an
-eager run.  Results handed to the caller are copies, never the static
-buffers, so a later replay cannot overwrite a result the caller kept.
+the kernels, makes every kept constant and, under a sharding, runs the
+collectives once, which sets up the NCCL communicator outside the graph),
+the allocator's cached blocks are freed, then the body is captured.  A
+capture that fails raises, with the op that broke it in the exception
+chain; nothing falls back to an eager run.  Results handed to the caller
+are copies, never the static buffers, so a later replay cannot overwrite
+a result the caller kept.
+
+Collectives (pixel_sharding over an NCCL group): every rank builds the
+same key and runs the same body, so every rank warms up and then captures
+the same collectives in the same order; a replay on each rank runs them
+again, paired with the other ranks' replays (or eager calls) by their
+order on the communicator.  Only an NCCL group is captured
+(core.shardutil.capturable, chosen from the group's backend before
+anything is captured): a gloo collective is a host call.  What
+ProcessGroupNCCL needs (found on an H100 with PyTorch 2.11 and its NCCL
+2.28): nothing beyond the warm-up.  PyTorch records a collective issued
+during capture on the capture stream and keeps it off the watchdog's
+list of work to poll, so the watchdog queries no event of the graph, and
+the default "global" capture mode, which fails a capture on an unsafe
+CUDA call from any thread, captures the graphed NCCL routes right after
+eager collectives (chip_smoke.py [sharded]).  Async error handling and
+the watchdog's timeouts are left as the process has them;
+TORCH_NCCL_BLOCKING_WAIT=1 would make each collective wait on the host,
+which no capture allows.
+
+disable() runs every entry point eagerly inside it (jax.disable_jit's
+counterpart): what launch counting and tracing from Python need.
 
 The cache keeps the programs of CACHE_SIZE keys and evicts the least
 recently used one: a program pins its graphs' memory pools, about one
@@ -36,18 +69,22 @@ gradient's peak.
 from __future__ import annotations
 
 import collections
+import contextlib
 import importlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from redner_tpu_torch import edge as edge_mod
+from redner_tpu_torch.core.shardutil import capturable
 from redner_tpu_torch.ops import intersect_cuda as ic
 from redner_tpu_torch.scene import (scene_structure, scene_tensors,
                                     scene_with_tensors)
 
 CACHE_SIZE = 4
 _cache = collections.OrderedDict()  # key -> Program, least recent first
+_disabled = False
 
 # Graphs captured and replayed since import, by graph kind; and of the
 # latest capture of each kind, the kernel launches it recorded (the kernel
@@ -151,18 +188,50 @@ class Program:
                      for g in self.backward_graph.out)
 
 
-def cache_key(kind, scene, options, correlated, engine):
+def _mesh_key(sharding):
+    """The mesh of a pixel sharding as a graph bakes it in: the backend,
+    this rank, the world size, the device and the group itself (None
+    without a group)."""
+    if sharding is None:
+        return None
+    group = sharding.group
+    backend = None if group is None else str(dist.get_backend(group))
+    return (backend, sharding.rank, sharding.world, str(sharding.device),
+            group)
+
+
+def cache_key(kind, scene, options, correlated, engine, sharding=None):
     """What a program's graphs bake in: the function (kind), the options,
     the correlated flag, the engine, the scene's structure (with the
-    devices of its tensors) and the module constants."""
+    devices of its tensors), the module constants and the mesh of the
+    pixel sharding."""
     return (kind, options._key(), correlated, engine,
-            scene_structure(scene), _module_constants())
+            scene_structure(scene), _module_constants(), _mesh_key(sharding))
 
 
-def program(kind, scene, options, correlated, engine, make):
+def _group_alive(group):
+    """Whether a process group is still registered (not destroyed)."""
+    try:
+        dist.get_backend(group)
+    except ValueError:  # no longer in the world's group map
+        return False
+    return True
+
+
+def _drop_dead_groups():
+    """Drop the programs whose process group was destroyed."""
+    for key in list(_cache):
+        mesh = key[-1]
+        if mesh is not None and mesh[-1] is not None and not _group_alive(
+                mesh[-1]):
+            del _cache[key]
+
+
+def program(kind, scene, options, correlated, engine, make, sharding=None):
     """The cached Program of this key, made by make(scene) on a miss; the
     least recently used key goes when the cache is full."""
-    key = cache_key(kind, scene, options, correlated, engine)
+    _drop_dead_groups()
+    key = cache_key(kind, scene, options, correlated, engine, sharding)
     prog = _cache.get(key)
     if prog is None:
         prog = make(scene)
@@ -174,7 +243,28 @@ def program(kind, scene, options, correlated, engine, make):
     return prog
 
 
+def replays(device, sharding=None):
+    """Whether an entry point on `device` under `sharding` replays graphs:
+    on a card, outside disable(), with no group or an NCCL one (gloo
+    collectives are host calls, so a gloo group runs eagerly; the choice
+    is made from the backend, before anything is captured)."""
+    return (torch.device(device).type == "cuda" and not _disabled
+            and capturable(sharding))
+
+
+@contextlib.contextmanager
+def disable():
+    """Every entry point runs eagerly inside (jax.disable_jit's
+    counterpart): each call runs from Python, so launch counters, patched
+    wrappers and tracers see every launch.  The cache is kept."""
+    global _disabled
+    saved, _disabled = _disabled, True
+    try:
+        yield
+    finally:
+        _disabled = saved
+
+
 def clear():
     """Drop every cached program (and with it the graphs' memory pools)."""
     _cache.clear()
-

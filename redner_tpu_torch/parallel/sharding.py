@@ -21,6 +21,14 @@ Every rank ends with the same image and the same gradients, which equal the
 one-process render's.  With torch.distributed not initialised, make_mesh()
 is a world of one that needs no collective.
 
+On cards over an NCCL group (or with no group) the entry points replay
+cached CUDA graphs with the collectives inside them (graphs.py), as the
+JAX package jit-compiles them: render_sharded's forward and edge-sampled
+backward, render_image_sharded's forward and, under autograd, its
+continuous backward, and so the render and gradient of each
+make_train_step step.  Over a gloo group (the CPU, or ranks sharing one
+card) they run eagerly; the route follows the group's backend.
+
 Launch one process per card:
 
     torchrun --nproc_per_node=8 train.py
@@ -138,7 +146,9 @@ def make_train_step(options: RenderOptions, mesh: Optional[Mesh] = None,
 
     use_edge_sampling=True renders with the edge-sampled `render`
     (visibility gradients too); False with render_image (continuous
-    gradients only).  trainable: a predicate on a leaf's path name, as
+    gradients only).  Over an NCCL group both replay their forward and
+    backward graphs (one capture each, at the first step); the loss and
+    the update are a few eager ops.  trainable: a predicate on a leaf's path name, as
     serialize.state_dict names it (e.g. `lambda p: "diffuse" in p`);
     None updates every float leaf."""
     from redner_tpu_torch.render_grad import render

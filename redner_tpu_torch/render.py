@@ -6,8 +6,8 @@ boolean mask.  Discrete quantities (hit ids, occlusion, RNG, CDF picks) are
 detached, so torch autograd of `render_image` gives the continuous
 (AD-only) gradients that `jax.grad(redner_tpu.render_image)` gives.  The
 code runs eagerly: the sample loop and bounce loop are Python loops; on a
-card, render_image and render_grad.render replay them as cached CUDA
-graphs (graphs.py).
+card, render_image (with or without autograd) and render_grad.render
+replay them as cached CUDA graphs (graphs.py).
 
 The edge-sampling hooks are here too: `trace_radiance` and `render_sample`
 trace externally supplied rays (the edge passes' offset pairs) and, given a
@@ -782,21 +782,33 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
     autograd each scene leaf's gradient is summed over the ranks, so every
     rank holds the one-process gradient.
 
-    On a card scene without pixel_sharding, when autograd is not recording
-    (grad disabled, or no tensor of the scene requires grad), the call
-    replays the cached CUDA graph of its configuration (graphs.py; the JAX
-    package's _render_image_jitted), captured on the first call, and
-    returns a fresh tensor.  Under autograd it runs eagerly."""
+    On a card scene the call replays cached CUDA graphs of its
+    configuration (graphs.py), captured on the first call, and returns a
+    fresh tensor: when autograd is not recording (grad disabled, or no
+    tensor of the scene requires grad) one forward graph (the JAX
+    package's _render_image_jitted); under autograd a forward graph and,
+    at the first backward, a backward graph that re-renders under autograd
+    at the same options and seed (jax.grad of it;
+    render_grad.graphed_render_image).  So does a pixel sharding over an
+    NCCL group.  A CPU scene, a gloo group and graphs.disable() run the
+    sample loop eagerly."""
+    from redner_tpu_torch import graphs
+
     dev = scene.shapes[0].vertices.device
     seed = sampler_mod._as_u32(seed, dev)
     recording = torch.is_grad_enabled() and any(
         x.requires_grad for x in scene_leaves(scene))
-    if dev.type == "cuda" and pixel_sharding is None and not recording:
-        from redner_tpu_torch import graphs
+    if graphs.replays(dev, pixel_sharding):
+        if recording:
+            from redner_tpu_torch.render_grad import graphed_render_image
 
+            return graphed_render_image(scene, options, seed, engine,
+                                        pixel_sharding)
         prog = graphs.program(
             "render_image", scene, options, None, engine,
-            lambda s: graphs.Program(s, graph_forward(options, engine)))
+            lambda s: graphs.Program(
+                s, graph_forward(options, engine, pixel_sharding)),
+            pixel_sharding)
         return prog.forward(scene_tensors(scene), seed)
     if pixel_sharding is not None and recording:
         leaves = scene_leaves(scene)
@@ -808,12 +820,13 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
                               pixel_sharding=pixel_sharding)
 
 
-def graph_forward(options: RenderOptions, engine=None):
+def graph_forward(options: RenderOptions, engine=None, pixel_sharding=None):
     """The body of a forward CUDA graph (graphs.Program): (scene, seed) ->
     the image, under no_grad."""
     def forward(scene, seed):
         with torch.no_grad():
-            return _render_image_impl(scene, options, seed, engine)
+            return _render_image_impl(scene, options, seed, engine,
+                                      pixel_sharding=pixel_sharding)
     return forward
 
 

@@ -27,14 +27,21 @@ re-render with its secondary edges and the primary edges on this rank's
 lanes; the backward then sums the leaves' gradients over the ranks in one
 all-reduce, so every rank holds the one-process gradient.
 
-`render` on a card scene without a pixel sharding replays cached CUDA
-graphs (graphs.py; the JAX package's jit cache of `render`, :186-205): the
-first call for a configuration captures the forward, the first backward
-captures the backward, later calls replay them.  `make_render(options)`
-is the eager function (JAX `make_render`, :46): every call runs from
-Python on any device, which is what launch counting and tracing need.  A
-CPU scene and a pixel sharding run eagerly (gloo collectives cannot be
-captured).
+`render` on a card scene replays cached CUDA graphs (graphs.py; the JAX
+package's jit cache of `render`, :186-205): the first call for a
+configuration captures the forward, the first backward captures the
+backward, later calls replay them.  Under a pixel sharding that holds for
+an NCCL group (its collectives are captured with the rest); a gloo group
+runs make_render's eager function, chosen from the group's backend before
+anything is captured (graphs.replays).  `make_render(options)` is the
+eager function (JAX `make_render`, :46): every call runs from Python on
+any device, which is what launch counting and tracing need; a CPU scene
+runs it too.
+
+`graphed_render_image` is `render_image` under autograd on a card (JAX:
+jax.grad of `_render_image_jitted`): the same two graphs, its backward
+the body above with both edge samplers off, at the forward's own options
+and seed, which is autograd through render_image.
 """
 
 from __future__ import annotations
@@ -110,9 +117,11 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
         wrt = [x for x in leaves if x.requires_grad]
         grads = torch.autograd.grad(total, wrt, allow_unused=True)
     if sharding is not None:
-        # Every rank passes the same leaves, so the pattern of unused
-        # (None) gradients is the same on all of them.
-        grads = all_reduce_grads(grads, sharding)
+        # Zeros for unused leaves: every rank then reduces the same
+        # shapes, whichever leaves its own lanes reach.
+        grads = all_reduce_grads(
+            [torch.zeros_like(x) if g is None else g
+             for x, g in zip(wrt, grads)], sharding)
     grads = iter(grads)
     return tuple(next(grads) if n else None for n in needs)
 
@@ -185,15 +194,20 @@ def make_render(options: RenderOptions, pixel_sharding=None,
     return fn
 
 
-def _make_program(options, correlated, engine):
+def _make_program(options, correlated, engine, sharding=None,
+                  backward_options=None):
+    """make(scene) -> the Program of render at options (the backward at
+    backward_options, default options) over `sharding`."""
+    backward_options = backward_options or options
+
     def make(scene):
         needs = [t.requires_grad for t in scene_tensors(scene)]
 
         def backward(s, seed, ct):
-            return _scene_grads(s, scene_tensors(s), needs, options, seed,
-                                correlated, engine, None, ct)
+            return _scene_grads(s, scene_tensors(s), needs, backward_options,
+                                seed, correlated, engine, sharding, ct)
 
-        return graphs.Program(scene, graph_forward(options, engine),
+        return graphs.Program(scene, graph_forward(options, engine, sharding),
                               backward)
 
     return make
@@ -205,11 +219,11 @@ def render(scene, options: RenderOptions, seed=0, engine=None,
     render_image(scene, options, seed); its backward gives every float
     tensor of the scene (scene_leaves) the reference's scene gradient.
 
-    On a card scene without pixel_sharding the call replays the cached
-    CUDA graphs of its configuration (graphs.py), capturing them on the
-    first call (the forward) and the first backward; the image and the
-    gradients are fresh tensors.  A CPU scene, or a pixel sharding, runs
-    make_render's eager function.
+    On a card scene the call replays the cached CUDA graphs of its
+    configuration (graphs.py), capturing them on the first call (the
+    forward) and the first backward; the image and the gradients are fresh
+    tensors.  So does a pixel sharding over an NCCL group.  A CPU scene, a
+    gloo group and graphs.disable() run make_render's eager function.
 
     seed: an int (wrapped to 32 bits) or an integer tensor, taken to the
     scene's device.  engine: None = the CUDA kernels on a card scene
@@ -217,10 +231,37 @@ def render(scene, options: RenderOptions, seed=0, engine=None,
     and "cluster") forces the plain ray queries.  pixel_sharding: see
     parallel.sharding.render_sharded."""
     dev = _scene_device(scene)
-    if dev.type != "cuda" or pixel_sharding is not None:
+    if not graphs.replays(dev, pixel_sharding):
         return make_render(options, pixel_sharding, _use_correlated,
                            engine)(scene, seed)
-    prog = graphs.program("render", scene, options, _use_correlated, engine,
-                          _make_program(options, _use_correlated, engine))
+    prog = graphs.program(
+        "render", scene, options, _use_correlated, engine,
+        _make_program(options, _use_correlated, engine, pixel_sharding),
+        pixel_sharding)
     return _GraphedRender.apply(prog, _as_u32(seed, dev),
                                 *scene_tensors(scene))
+
+
+def _render_image_program(options, engine, sharding=None):
+    """make(scene) -> the Program of render_image under autograd: render's
+    program with the backward at the forward's own options and seed
+    (correlated) and both edge samplers off, which is autograd through
+    render_image (jax.grad of _render_image_jitted)."""
+    continuous = options._copy_with(
+        use_primary_edge_sampling=False, use_secondary_edge_sampling=False,
+        num_samples_backward=options.num_samples)
+    return _make_program(options, True, engine, sharding, continuous)
+
+
+def graphed_render_image(scene, options: RenderOptions, seed, engine,
+                         pixel_sharding):
+    """render_image under autograd, replayed from graphs (render.render_image
+    calls it on a card): the forward graph renders the image; the backward
+    graph re-renders under autograd and takes autograd.grad, the leaves'
+    gradients summed over the ranks under a sharding.  seed: the int64
+    device seed."""
+    prog = graphs.program(
+        "render_image_grad", scene, options, None, engine,
+        _render_image_program(options, engine, pixel_sharding),
+        pixel_sharding)
+    return _GraphedRender.apply(prog, seed, *scene_tensors(scene))

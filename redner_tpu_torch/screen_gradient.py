@@ -8,6 +8,12 @@ detach their rays, so the tangents stop at the discrete hit records as the
 primal gradients do).  The discontinuous (silhouette) part scatters
 primary-edge samples into their pixels; options.use_primary_edge_sampling
 gates it.
+
+On a card the whole function (every sample's two jvps and the primary-edge
+scatter) replays a cached CUDA graph of its configuration (graphs.py, kind
+"screen_gradient"; JAX runs it as one compiled scan): the dual tensors are
+made inside the captured body, so a replay recomputes the tangents the
+capture recorded, on the new scene tensors and seed.
 """
 
 from __future__ import annotations
@@ -16,22 +22,39 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 import redner_tpu_torch.sampler as sampler_mod
+from redner_tpu_torch import graphs
 from redner_tpu_torch.edge import primary_edge_screen_gradient_image
 from redner_tpu_torch.render import RenderOptions, render_sample
-from redner_tpu_torch.scene import flatten_scene
+from redner_tpu_torch.scene import flatten_scene, scene_tensors
 
 
 def screen_gradient_image(scene, options: RenderOptions, seed=0,
                           engine=None):
     """-> (vh, vw, 2, C) image of d(channel)/d(x_pixel) and
-    d(channel)/d(y_pixel).  engine: see accel.intersect."""
+    d(channel)/d(y_pixel).  seed: an int (wrapped to 32 bits) or an
+    integer tensor.  engine: see accel.intersect.  On a card the result
+    is a fresh tensor from the configuration's graph; a CPU scene and
+    graphs.disable() run it eagerly."""
+    dev = scene.shapes[0].vertices.device
+    seed = sampler_mod._as_u32(seed, dev)
+    if not graphs.replays(dev):
+        return _screen_gradient(scene, options, seed, engine)
+    prog = graphs.program(
+        "screen_gradient", scene, options, None, engine,
+        lambda s: graphs.Program(
+            s, lambda sc, sd: _screen_gradient(sc, options, sd, engine)))
+    return prog.forward(scene_tensors(scene), seed)
+
+
+def _screen_gradient(scene, options, seed, engine):
+    """The screen gradient of the scene at the int64 device seed: the body
+    of both routes."""
     fs = flatten_scene(scene)
     camera = scene.camera
     top, left, bottom, right = camera.viewport_or_full
     vw, vh = right - left, bottom - top
     n = vw * vh
     ci = options.channel_info
-    seed = int(seed) & 0xFFFFFFFF
     dev, dtype = fs.device, fs.vertices.dtype
     pixel_ids = torch.arange(n, device=dev)
     total = torch.zeros((n, 2, ci.num_total_dimensions), dtype=dtype,
@@ -53,13 +76,14 @@ def screen_gradient_image(scene, options: RenderOptions, seed=0,
                     d = fwAD.unpack_dual(out).tangent
                 if d is not None:
                     total[:, axis] += d
-    img = (total / options.num_samples).reshape(vh, vw, 2,
-                                                ci.num_total_dimensions)
-    if options.use_primary_edge_sampling:
-        num_edge_samples = options.num_edge_samples or n * options.num_samples
-        img = img + primary_edge_screen_gradient_image(
-            scene, flatten_scene, render_sample, options, seed,
-            num_edge_samples, img.shape, engine=engine)
+        img = (total / options.num_samples).reshape(vh, vw, 2,
+                                                    ci.num_total_dimensions)
+        if options.use_primary_edge_sampling:
+            num_edge_samples = (options.num_edge_samples
+                                or n * options.num_samples)
+            img = img + primary_edge_screen_gradient_image(
+                scene, flatten_scene, render_sample, options, seed,
+                num_edge_samples, img.shape, engine=engine)
     return img
 
 

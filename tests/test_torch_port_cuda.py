@@ -711,3 +711,114 @@ def test_graph_cache_evicts_the_least_recent_key(dev):
         assert graphs.CAPTURES["forward"] == before
         rtt.render_image(scene, keys[0], seed=1)  # evicted: captured again
         assert graphs.CAPTURES["forward"] == before + 1
+
+
+# ------------------------------------------- the routes compiled since then
+
+
+def _graphed_vs_eager(render, scene, w, seeds=(5, 6, 6), clear=True):
+    """render(scene, seed) graphed against the same call inside
+    graphs.disable(), at each seed (the last after the vertices x 1.05 in
+    place): the image within atol 1e-6 on every pixel, each gradient of
+    sum(image * w) within rtol 1e-4 (atol 1e-6 x max).  Returns the
+    captures the calls made and whether the first call's results were
+    left as they were by the later calls (fresh tensors).  clear: empty
+    the graph cache first."""
+    if clear:
+        graphs.clear()
+    before = dict(graphs.CAPTURES)
+    kept = None
+    for step, seed in enumerate(seeds):
+        if step == 2:
+            with torch.no_grad():
+                scene.shapes[0].vertices.mul_(1.05)
+        img, got = _leaf_grads(render, scene, seed, w)
+        with graphs.disable():
+            ref_img, ref = _leaf_grads(render, scene, seed, w)
+        torch.testing.assert_close(img, ref_img, rtol=0, atol=1e-6)
+        for g, r in zip(got, ref):
+            g, r = g.cpu().numpy(), r.cpu().numpy()
+            assert np.isfinite(g).all() and np.abs(r).max() > 0
+            np.testing.assert_allclose(g, r, rtol=1e-4,
+                                       atol=1e-6 * np.abs(r).max())
+        if kept is None:
+            kept = (img, got, img.clone(), [g.clone() for g in got])
+    fresh = (torch.equal(kept[0], kept[2])
+             and all(torch.equal(a, b) for a, b in zip(kept[1], kept[3])))
+    return {k: graphs.CAPTURES[k] - before[k] for k in before}, fresh
+
+
+@pytest.mark.cuda
+def test_graphed_render_image_gradient_matches_eager(dev):
+    """render_image under autograd replays a forward and a backward graph
+    (one capture each for the key, none on later calls) and gives the
+    eager image and continuous gradients, fresh tensors every call, and a
+    new image after an in-place update of the vertices."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    w = np.random.default_rng(9).uniform(0.5, 1.5, (32, 32, 3)).astype(
+        np.float32)
+    captures, fresh = _graphed_vs_eager(
+        lambda s, sd: rtt.render_image(s, opts, seed=sd),
+        _scene(dev, res=(32, 32)), w)
+    assert captures == {"forward": 1, "backward": 1} and fresh
+    assert len(graphs._cache) == 1
+
+
+@pytest.mark.cuda
+def test_graphed_screen_gradient_matches_eager(dev):
+    """screen_gradient_image replays one forward graph per key: within
+    relative L2 1e-4 of the eager image (its primary-edge scatter sums with
+    atomics), at two seeds and after an in-place update of the vertices;
+    a kept result is left as it was."""
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(32, 32))
+    graphs.clear()
+    before = dict(graphs.CAPTURES)
+    first = None
+    for step, seed in enumerate((5, 6, 6)):
+        if step == 2:
+            with torch.no_grad():
+                scene.shapes[0].vertices.mul_(1.05)
+        got = rtt.screen_gradient_image(scene, opts, seed=seed)
+        with graphs.disable():
+            ref = rtt.screen_gradient_image(scene, opts, seed=seed)
+        assert torch.isfinite(got).all() and float(ref.abs().max()) > 0
+        assert float((got - ref).norm() / ref.norm()) <= 1e-4
+        if first is None:
+            first = (got, got.clone())
+    assert torch.equal(*first)
+    assert {k: graphs.CAPTURES[k] - before[k] for k in before} == {
+        "forward": 1, "backward": 0}
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_render_sharded_replays_graphs(dev, tmp_path):
+    """render_sharded over a one-rank NCCL group replays graphs with the
+    collectives captured: the eager route's image and gradients, one
+    forward and one backward capture, fresh results.  The key holds the
+    group: after it is destroyed, a new group's first call captures anew
+    (a replay of the old graphs would use a communicator that is gone)."""
+    import torch.distributed as dist
+
+    from redner_tpu_torch.parallel.sharding import make_mesh, render_sharded
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    w = np.random.default_rng(6).uniform(0.5, 1.5, (16, 16, 3)).astype(
+        np.float32)
+    graphs.clear()
+    for attempt in range(2):
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp_path}/rdv{attempt}", rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh(dev)
+            captures, fresh = _graphed_vs_eager(
+                lambda s, sd: render_sharded(s, opts, seed=sd, mesh=mesh),
+                _scene(dev, res=(16, 16)), w, clear=False)
+        finally:
+            dist.destroy_process_group()
+        assert captures == {"forward": 1, "backward": 1} and fresh
+    # The next lookup drops both groups' programs.
+    with torch.no_grad():
+        rtt.render(_scene(dev, res=(16, 16)), opts, seed=1)
+    assert len(graphs._cache) == 1

@@ -157,3 +157,46 @@ def sharded_results(res=(16, 16), train=True):
         out["losses"], out["trained_diffuse"] = train_losses(mesh)
         out["launches"] = launches_per_gradient(mesh)
     return out
+
+
+
+def with_grad_leaves(scene):
+    """Mark and return the leaves the graph-body tests differentiate: the
+    first material's diffuse, the first light's intensity, every shape's
+    vertices and the camera position."""
+    leaves = ([scene.materials[0].diffuse_reflectance.texels,
+               scene.area_lights[0].intensity]
+              + [s.vertices for s in scene.shapes] + [scene.camera.position])
+    for x in leaves:
+        x.requires_grad_(True)
+    return leaves
+
+
+def program_bodies(scene, options_kw, seed, ct, sharding=None):
+    """What the graphs of render (kind "render") and of render_image under
+    autograd ("render_image_grad") capture, run eagerly: each program's
+    forward body's image and its backward body's gradients of <image, ct>
+    w.r.t. the with_grad_leaves leaves, in that order -> {kind: (image,
+    [gradients])}.  Without a sharding, the process group's mesh when one
+    is initialised."""
+    from redner_tpu_torch.render_grad import (_make_program,
+                                              _render_image_program)
+    from redner_tpu_torch.scene import scene_tensors
+
+    torch.set_num_threads(1)
+    if sharding is None and torch.distributed.is_initialized():
+        sharding = make_mesh("cpu")
+    leaves = with_grad_leaves(scene)
+    at = {id(t): i for i, t in enumerate(scene_tensors(scene))}
+    opts = rtt.RenderOptions(**options_kw)
+    seed = torch.tensor(seed, dtype=torch.int64)
+    out = {}
+    for kind, make in (
+            ("render", _make_program(opts, True, None, sharding)),
+            ("render_image_grad", _render_image_program(opts, None,
+                                                        sharding))):
+        prog = make(scene)
+        img = prog._forward_body(scene, seed)
+        grads = prog._backward_body(scene, seed, ct)
+        out[kind] = (img, [grads[at[id(x)]] for x in leaves])
+    return out
