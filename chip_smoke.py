@@ -145,8 +145,9 @@ Phases (any failure exits non-zero):
              graphed against eager at seeds 11 and 12 and after an in-place
              update of the vertices (every pixel within atol 1e-6, each
              leaf's gradient within relative L2 1e-4, printed beside the
-             eager-vs-eager value; one capture per key, none on later
-             calls, capture seconds); render_image graphed against eager
+             eager-vs-eager value; the first call of a key eager, one
+             capture at the second, none on later calls, capture
+             seconds); render_image graphed against eager
              and its forward wall (median of 5); the front end's five Adam
              steps (losses within rtol 1e-3); the kernel nodes per graphed
              gradient (32 + 16, counted at capture and in a profile of the
@@ -169,7 +170,21 @@ Phases (any failure exits non-zero):
              backward re-renders the forward), its kernels against their
              plain versions on every batch, its wall eager and graphed
              (median of 3) and the busy and idle share of one graphed run;
- 14. report  one `kernels` JSON line, the nvidia-smi line, and the final
+ 14. second_order  the slice's second derivative (256x256, 4 spp):
+             d/dleaves sum_i <u_i, d sum(image^2) / d leaf_i> through
+             rtt.render and rtt.render_image, the first gradient taken
+             with create_graph (its backward, and the continuous backward
+             of the image, run eagerly on the graph cache's route:
+             graphs.EAGER["create_graph"], 6 per route), against
+             graphs.disable(): relative L2 <= 1e-4 per leaf, printed
+             beside eager against eager; walls; the launches of the phase;
+ 15. tutorials  each file of tutorials/torch_port at its own size (64x64;
+             05: 32x32 then 64x64 at 2 bounces) for 6 steps (05: 4 a
+             level), graphed and inside graphs.disable(): losses finite,
+             falling over each level and within rtol 1e-3 of eager; the
+             launches of the graphed run (counted from zero), its graphs
+             captured and replayed, and each step's wall;
+ 16. report  one `kernels` JSON line, the nvidia-smi line, and the final
              {"ok": true, "device": ...} line.
 
 Phases 4-11 run inside graphs.disable(): every entry point runs eagerly,
@@ -186,9 +201,17 @@ memory of the slice's gradient with and without remat, at 256x256 x 4 spp
 and at 1024x1024 x 16 and x 32 spp, with the secondary-edge candidate draw
 in runs of lanes (edge.CANDIDATE_CHUNK) and, but at 32 spp, in one run;
 and what the allocations live at the peak are, by the line of the port
-that made them; then the graphed gradient's first-call and replay peaks
-and what its graphs keep, at 256x256 x 4 and 1024x1024 x 16 spp
-(graphed_memory).
+that made them; then the gradient through the graph cache
+(graphed_memory): 256x256 x 4 spp, then with no clear() between them two
+1024x1024 x 16 spp keys (the second's first call releases the first's
+graphs), the 1024x1024 x 32 spp key (eager where its graphs would not
+fit the card, each eager call making room first), the second 16 spp key
+again and the 32 spp key again: each call's route, peak, wall and the
+bytes each cached key keeps.
+
+    python3 chip_smoke.py --graph-memory
+
+runs graphed_memory alone.
 
     python3 chip_smoke.py --cards N
 
@@ -196,7 +219,11 @@ runs only the lane split over N cards (phase_cards): the slice's gradient
 at 256x256 x 4 spp and 1024x1024 x 4 spp on N spawned ranks, one card
 each over NCCL, against one process on the first card, all replaying
 graphs: pixels, gradients, kernel nodes and peak memory per rank, fwd+bwd
-of one graphed card against the ranks'.
+of one graphed card against the ranks'; then MIXED_CALLS gradients at
+256x256 x 4 spp in which the ranks take different routes at the same
+call (each rank empties its graph cache before a different call, so one
+runs eagerly while others capture or replay): every call's gradients
+equal on every rank and within relative L2 1e-4 of one process's.
 
 It imports nothing of JAX or redner_tpu.
 """
@@ -2167,6 +2194,7 @@ TRAIN_STEPS = 5
 TRAIN_LR = 3.0
 TRAIN_START = [0.8, 0.3, 0.2]  # the sphere's diffuse at step 0
 TRAIN_RTOL = 1e-3  # two ranks' losses vs one process's
+MIXED_CALLS = 4  # mixed_routes' gradients
 
 
 def _sphere_diffuse(path):
@@ -2210,9 +2238,10 @@ def gradient_run(scene, opts, mesh=None):
     3; under a mesh every rank starts each run together) and the peak
     memory of those runs; through the sharded entry points over `mesh`
     when one is given.  Where the call replays graphs (a card, outside
-    graphs.disable(), no group or an NCCL one), the cache is emptied first
-    and the launches are the kernel nodes that the gradient's captures
-    record; else the launches of one eager gradient.  Returns CPU tensors
+    graphs.disable(), no group or an NCCL one), the cache is emptied first,
+    the first gradient runs eagerly, the second captures, and the launches
+    are the kernel nodes that the gradient's captures record; else the
+    launches of one eager gradient.  Returns CPU tensors
     and numbers."""
     graphed = graphs.replays(scene.camera.device, mesh)
     if graphed:
@@ -2221,8 +2250,9 @@ def gradient_run(scene, opts, mesh=None):
         img = (rtt.render_image(scene, opts, seed=SEED) if mesh is None else
                render_image_sharded(scene, opts, seed=SEED, mesh=mesh))
     before = dict(graphs.CAPTURES)
-    gradient(scene, opts, mesh=mesh)  # warm-up (graphed: the captures)
+    gradient(scene, opts, mesh=mesh)  # warm-up (graphed: eager, measured)
     if graphed:
+        gradient(scene, opts, mesh=mesh)  # the captures
         _check({k: graphs.CAPTURES[k] - before[k] for k in before}
                == {"forward": 1, "backward": 1},
                "the graphed gradient did not capture once")
@@ -2249,12 +2279,35 @@ def gradient_run(scene, opts, mesh=None):
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
 
 
-def _rank(devices, cells, train):
+def mixed_routes(mesh, cell=SLICE_CELL):
+    """MIXED_CALLS gradients of the slice at `cell` (resolution, spp) over
+    `mesh`, this rank's graph cache emptied before call rank + 1: at one
+    call the ranks take different routes (a key's first call runs
+    eagerly, its second captures, later ones replay), which must issue
+    the same collectives.  Returns per call its gradients and this
+    rank's captures."""
+    res, spp = cell
+    scene = make_slice_scene(res=res, device=mesh.device)
+    opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+    graphs.clear()
+    rows = []
+    for call in range(MIXED_CALLS):
+        if call == mesh.rank + 1:
+            graphs.clear()
+        before = dict(graphs.CAPTURES)
+        grads = gradient(scene, opts, mesh=mesh)
+        rows.append({"grads": [g.cpu() for g in grads], "captures": {
+            k: graphs.CAPTURES[k] - before[k] for k in before}})
+    graphs.clear()
+    return rows
+
+
+def _rank(devices, cells, train, mixed=False):
     """One spawned rank (parallel.spawn.run_ranks) on
     devices[rank]: gradient_run over the mesh for each (resolution, spp)
     cell, on the route the group's backend picks (gloo: eager; NCCL:
     graphed); with train, also a profile of one gradient and the train
-    step's losses (on the first cell)."""
+    step's losses (on the first cell); with mixed, mixed_routes last."""
     dev = torch.device(devices[dist.get_rank()])
     torch.cuda.set_device(dev)
     mesh = make_mesh(dev)
@@ -2272,13 +2325,16 @@ def _rank(devices, cells, train):
                                                                     mesh)
         del scene
         graphs.clear()
+    if mixed:
+        out.append(mixed_routes(mesh))
     return out
 
 
-def spawn_ranks(world, devices, cells, train, backend):
-    """_rank on `world` spawned ranks -> per rank, its list of cells."""
+def spawn_ranks(world, devices, cells, train, backend, mixed=False):
+    """_rank on `world` spawned ranks -> per rank, its list of cells (and
+    with mixed, mixed_routes's rows last)."""
     with tempfile.TemporaryDirectory() as tmp:
-        return run_ranks(world, _rank, (devices, cells, train), tmp,
+        return run_ranks(world, _rank, (devices, cells, train, mixed), tmp,
                          backend=backend)
 
 
@@ -2314,7 +2370,8 @@ def nccl_train(opts, mesh, refs, smi_line):
     which replay graphs, edge-sampled and continuous, against one
     process's eager steps (refs: label -> losses): the loss falls at every
     step and matches within TRAIN_RTOL.  The step's wall (the first step
-    captures) and the CUDA kernels and idle share of one more step.
+    runs eagerly, the second captures) and the CUDA kernels and idle
+    share of one more step.
     Returns label -> row."""
     rows = {}
     for label, edges in (("edge-sampled", True), ("continuous", False)):
@@ -2323,8 +2380,9 @@ def nccl_train(opts, mesh, refs, smi_line):
         captures = {k: graphs.CAPTURES[k] - before[k] for k in before}
         print(f"[sharded] one-rank NCCL group, graphed {label} train step: "
               f"losses {losses}, one process (eager) {refs[label]}; "
-              f"captures {captures}; step ms {_walls(ms)} (the first "
-              f"captures), median of the later {statistics.median(ms[1:]):.3f}"
+              f"captures {captures}; step ms {_walls(ms)} (the first eager, "
+              f"the second captures), median of the later "
+              f"{statistics.median(ms[2:]):.3f}"
               f"; {smi_line}", flush=True)
         _check(all(b < a for a, b in zip(losses, losses[1:])),
                f"graphed {label} train: the loss did not fall: {losses}")
@@ -2533,8 +2591,9 @@ def graph_vs_eager(name, path, smi_line, tag="graph"):
     index backward's atomics); a forward-only path (no leaves; the screen
     gradient, whose primary-edge scatter sums with atomics) holds its
     image to GRAPH_L2_MAX relative L2, its max |diff| printed beside
-    eager vs eager.  The first call captures one forward graph (and one
-    backward for a gradient) and a later call captures nothing.  Then the
+    eager vs eager.  The first call runs eagerly (the cache measures it),
+    the second captures one forward graph (and one backward for a
+    gradient) and a later call captures nothing.  Then the
     wall, graphed and eager (median of 3 each), while the key is cached.
     Returns the row."""
     scene, names, leaves_of, fn = path
@@ -2546,7 +2605,7 @@ def graph_vs_eager(name, path, smi_line, tag="graph"):
     steps = (("seed 11", SEED), ("seed 12", SEED + 1),
              ("leaf update", SEED + 1))
     if name == "remat":
-        steps = steps[:1]
+        steps = steps[:2]
     ee = None
     for step, seed in steps:
         if step == "leaf update":
@@ -2557,7 +2616,7 @@ def graph_vs_eager(name, path, smi_line, tag="graph"):
         torch.cuda.synchronize()
         got = {k: graphs.CAPTURES[k] - before[k] for k in before}
         row["captures"].append(got)
-        if row["capture_s"] is None:
+        if row["capture_s"] is None and any(got.values()):
             kinds = [k for k in ("forward", "backward") if got[k]]
             row["capture_s"] = {k: graphs.LAST_CAPTURE[k]["seconds"]
                                 for k in kinds}
@@ -2597,12 +2656,13 @@ def graph_vs_eager(name, path, smi_line, tag="graph"):
     with torch.no_grad():
         vertices.copy_(keep)
     want = {"forward": 1, "backward": int(grad)}
-    _check(row["captures"][0] == want,
-           f"{name}: the first call captured {row['captures'][0]}")
-    _check(all(c == {"forward": 0, "backward": 0}
-               for c in row["captures"][1:]),
+    none = {"forward": 0, "backward": 0}
+    _check(row["captures"][:2] == [none, want],
+           f"{name}: the first two calls captured {row['captures'][:2]}, "
+           f"want {none} (eager) then {want}")
+    _check(all(c == none for c in row["captures"][2:]),
            f"{name}: a later call captured again: {row['captures']}")
-    print(f"[{tag}] {name}: capture seconds (warm-up included) "
+    print(f"[{tag}] {name}: capture seconds "
           f"{row['capture_s']}; kernel nodes {row['nodes']}", flush=True)
     run = lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene))
     row["graphed_ms"], g_walls = _wall_ms(run)
@@ -2788,10 +2848,12 @@ def phase_graph(scene, opts, smi_line):
     lap("graph: graphed vs eager gradients, times")
 
     # Memory: the peak of one slice gradient, eager and graphed (a
-    # replay), and what the graph pools of the four cached keys hold.
+    # replay), and what the graph pools of the cached keys hold.
     run = lambda: img_grads(lambda: fn(s, SEED), leaves_of(s))
     mem = {}
     for label in ("eager", "graphed"):
+        if label == "graphed":
+            run()  # captures again: a later key's first call released it
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2804,13 +2866,14 @@ def phase_graph(scene, opts, smi_line):
         mem[f"{label}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved()
+    holding = [key[0] for key, b in graphs.cached_bytes().items() if b]
     graphs.clear()
     torch.cuda.empty_cache()
     mem["cache_holds_mib"] = (held - torch.cuda.memory_reserved()) / 2**20
     print(f"[graph] slice gradient peak memory: eager "
           f"{mem['eager_peak_mib']:.1f} MiB, graphed replay "
           f"{mem['graphed_peak_mib']:.1f} MiB; the graph cache's "
-          f"{len(render_keys)} gradient keys ({', '.join(render_keys)}) hold "
+          f"{len(holding)} keys with graphs ({', '.join(holding)}) hold "
           f"{mem['cache_holds_mib']:.1f} MiB of reserved memory", flush=True)
     lap("graph: memory")
 
@@ -2876,10 +2939,12 @@ def phase_graph(scene, opts, smi_line):
     with graphs.disable():
         big_e, big_e_walls = _wall_ms(run, 1)
     first, _ = _wall_ms(run, 1)
+    second, _ = _wall_ms(run, 1)
     big_g, big_g_walls = _wall_ms(run, 1)
     print(f"[graph] {res[0]}x{res[1]} x {spp} spp slice gradient: eager "
-          f"{big_e:.3f} ms, graphed {big_g:.3f} ms (first call, capture "
-          f"included: {first:.3f} ms); {smi_line}", flush=True)
+          f"{big_e:.3f} ms, graphed {big_g:.3f} ms (first call, eager and "
+          f"measured: {first:.3f} ms; second, capture included: "
+          f"{second:.3f} ms); {smi_line}", flush=True)
     del big
     graphs.clear()
     torch.cuda.empty_cache()
@@ -2889,7 +2954,183 @@ def phase_graph(scene, opts, smi_line):
                                                 "graphed": g_losses},
             "big": {"cell": f"{res[0]}x{res[1]} x {spp} spp",
                     "eager_ms": big_e, "graphed_ms": big_g,
-                    "first_call_ms": first}}
+                    "first_call_ms": first, "capture_call_ms": second}}
+
+
+# ----------------------------------------------------------------------
+# Second derivatives through render and render_image
+# ----------------------------------------------------------------------
+
+SECOND_ORDER_L2_MAX = 1e-4  # graphed vs graphs.disable(), per leaf
+
+
+def second_order(fn, scene):
+    """The slice leaves' second derivative of fn: g = d sum(fn(scene)^2) /
+    d leaves taken with create_graph, then d sum_i <u_i, g_i> / d leaves,
+    u_i fixed weights in [0.5, 1.5) made from SEED."""
+    leaves = slice_leaves(scene)
+    rng = np.random.default_rng(SEED)
+    us = [torch.as_tensor(rng.uniform(0.5, 1.5, tuple(x.shape)),
+                          dtype=x.dtype, device=x.device) for x in leaves]
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        img = fn(scene)
+        g = torch.autograd.grad(torch.sum(img ** 2), leaves,
+                                create_graph=True)
+        _check(all(x.requires_grad for x in g),
+               "a create_graph gradient has no history")
+        total = sum(torch.sum(gi * u) for gi, u in zip(g, us))
+        h = torch.autograd.grad(total, leaves, allow_unused=True)
+        return [torch.zeros_like(x) if y is None else y.detach()
+                for x, y in zip(leaves, h)]
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+
+
+def phase_second_order(scene, opts, smi_line):
+    """The slice's second derivative (256x256 x 4 spp) through rtt.render
+    and rtt.render_image: the route on the graph cache (the forward
+    replays its graph; the backward that records and the continuous
+    backward of the marked render run eagerly: graphs.EAGER
+    ["create_graph"]) against graphs.disable(), relative L2 <= 1e-4 per
+    leaf, printed beside eager against eager; the wall of each (the
+    graphed one after the call that captures its forward); the launches
+    of the phase."""
+    routes = {"render": lambda s: rtt.render(s, opts, seed=SEED),
+              "render_image": lambda s: rtt.render_image(s, opts, seed=SEED)}
+    graphs.clear()
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    rows = {}
+    for name, fn in routes.items():
+        eager0 = graphs.EAGER["create_graph"]
+        run = lambda: second_order(fn, scene)
+        first = run()
+        run()  # the forward's capture
+        graphed_ms, g_walls = _wall_ms(run, 1)
+        routed = graphs.EAGER["create_graph"] - eager0
+        with graphs.disable():
+            eager = run()
+            eager_ms, e_walls = _wall_ms(run, 1)
+            again = run()
+        l2 = [rel_l2(a, b) for a, b in zip(first, eager)]
+        l2_ee = [rel_l2(a, b) for a, b in zip(again, eager)]
+        finite = all(bool(torch.isfinite(x).all()) for x in first + eager)
+        rows[name] = {"graphed_ms": graphed_ms, "eager_ms": eager_ms,
+                      "rel_l2": dict(zip(GRAD_LEAVES, l2)),
+                      "rel_l2_eager_vs_eager": dict(zip(GRAD_LEAVES, l2_ee)),
+                      "create_graph_routes": routed}
+        print(f"[second_order] {name}: relative L2 graphed vs eager per leaf "
+              f"{dict(zip(GRAD_LEAVES, l2))}, eager vs eager "
+              f"{dict(zip(GRAD_LEAVES, l2_ee))}; wall graphed "
+              f"{graphed_ms:.3f} ms, eager {eager_ms:.3f} ms; eager "
+              f"create_graph routes taken on the graph cache's route "
+              f"{routed} (2 a call of 3: the recording backward and the "
+              f"continuous backward of the image); {smi_line}", flush=True)
+        _check(finite, f"second order through {name}: non-finite values")
+        _check(max(l2) <= SECOND_ORDER_L2_MAX,
+               f"second order through {name}: graphed off eager by {l2}")
+        _check(routed == 6, f"{name}: {routed} create_graph routes, want 6")
+    torch.cuda.synchronize()
+    launches = dict(ic.LAUNCHES)
+    print(f"[second_order] launches of the phase {launches}", flush=True)
+    _check(all(v > 0 for v in launches.values()),
+           f"[second_order]: a kernel did not launch: {launches}")
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return {"routes": rows, "launches": launches}
+
+
+# ----------------------------------------------------------------------
+# The tutorials' inverse-rendering loops (tutorials/torch_port)
+# ----------------------------------------------------------------------
+
+# (file, steps a level): each at its own size (64x64; 05: 32x32 then 64x64)
+TUTORIALS = (("01_optimize_single_triangle", 6), ("02_pose_estimation", 6),
+             ("03_material_texture", 6), ("04_fast_deferred_rendering", 6),
+             ("05_coarse_to_fine_estimation", 4),
+             ("01_optimize_single_triangle_compat", 6))
+TUTORIAL_LOSS_RTOL = 1e-3  # graphed vs graphs.disable() losses
+
+
+def load_tutorial(name):
+    """The module of tutorials/torch_port/<name>.py."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tutorials", "torch_port", name + ".py")
+    spec = importlib.util.spec_from_file_location(f"tutorial_{name[:2]}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _levels(losses):
+    """A tutorial's losses by level (05 returns one list a level)."""
+    return losses if isinstance(losses[0], list) else [losses]
+
+
+def phase_tutorials(smi_line):
+    """Each tutorial of tutorials/torch_port on the card for a few steps at
+    its own size: its launch counts zeroed just before the graphed run and
+    read after it, the graphs it captured and replayed, the wall of each
+    step, and its losses: finite, falling over each level, and within rtol
+    1e-3 of the same steps inside graphs.disable()."""
+    rows = {}
+    for name, steps in TUTORIALS:
+        mod = load_tutorial(name)
+        graphs.clear()
+        torch.cuda.synchronize()
+        ic.reset_launch_counts()
+        cap0, rep0 = dict(graphs.CAPTURES), dict(graphs.REPLAYS)
+        eager0 = graphs.EAGER["memory"]
+        got = mod.main(steps=steps)
+        torch.cuda.synchronize()
+        launches = dict(ic.LAUNCHES)
+        captures = {k: graphs.CAPTURES[k] - cap0[k] for k in cap0}
+        replays = {k: graphs.REPLAYS[k] - rep0[k] for k in rep0}
+        with graphs.disable():
+            ref = mod.main(steps=steps)
+        g_levels, e_levels = _levels(got["losses"]), _levels(ref["losses"])
+        g_ms = [ms for lv in _levels(got["step_ms"]) for ms in lv[2:]]
+        e_ms = [ms for lv in _levels(ref["step_ms"]) for ms in lv[2:]]
+        flat_g = [x for lv in g_levels for x in lv]
+        flat_e = [x for lv in e_levels for x in lv]
+        rows[name] = {
+            "steps": steps, "losses": g_levels, "eager_losses": e_levels,
+            "step_ms": statistics.median(g_ms),
+            "eager_step_ms": statistics.median(e_ms),
+            "first_step_ms": [lv[:2] for lv in _levels(got["step_ms"])],
+            "captures": captures, "replays": replays,
+            "memory_eager": graphs.EAGER["memory"] - eager0,
+            "launches": launches}
+        print(f"[tutorials] {name}: {steps} steps a level; losses graphed "
+              f"{g_levels}, eager {e_levels}; step ms graphed median "
+              f"{rows[name]['step_ms']:.3f} (all after the first two of a "
+              f"level: {_walls(g_ms)}; the first two, eager then the "
+              f"captures: {rows[name]['first_step_ms']}), eager "
+              f"median {rows[name]['eager_step_ms']:.3f} (all: "
+              f"{_walls(e_ms)}); captures {captures}, replays {replays}; "
+              f"launches of the graphed run {launches}; {smi_line}",
+              flush=True)
+        _check(all(np.isfinite(flat_g + flat_e)), f"{name}: a loss is not "
+               "finite")
+        _check(all(lv[-1] < lv[0] for lv in g_levels),
+               f"{name}: the loss did not fall over a level: {g_levels}")
+        _check(np.allclose(flat_g, flat_e, rtol=TUTORIAL_LOSS_RTOL, atol=0.0),
+               f"{name}: graphed losses {flat_g} off eager {flat_e}")
+        _check(launches["closest_hit"] > 0,
+               f"{name}: the closest-hit kernel did not launch: {launches}")
+        _check(launches["any_hit"] > 0 or name.startswith("04"),
+               f"{name}: the any-hit kernel did not launch: {launches}")
+        _check(captures["forward"] > 0 and replays["forward"] > 0,
+               f"{name}: no graph captured or replayed: {captures}, "
+               f"{replays}")
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3020,61 +3261,111 @@ def phase_memory(smi_line):
     return rows
 
 
-GRAPH_MEMORY_CELLS = (((256, 256), 4), ((1024, 1024), 16))
+# (label, resolution, spp, the leaves of the gradient, calls): the
+# sequence graphed_memory runs with no clear() between its 1024x1024 calls.
+GRAPH_MEMORY_CALLS = (
+    ("256x256 x 4 spp, every leaf", (256, 256), 4, None, 3),
+    ("1024x1024 x 16 spp, every leaf", (1024, 1024), 16, None, 3),
+    ("1024x1024 x 16 spp, the vertices", (1024, 1024), 16, 1, 2),
+    ("1024x1024 x 32 spp, every leaf", (1024, 1024), 32, None, 2),
+    ("1024x1024 x 16 spp, the vertices", (1024, 1024), 16, 1, 1),
+    ("1024x1024 x 32 spp, every leaf", (1024, 1024), 32, None, 1))
 
 
 def graphed_memory(smi_line):
-    """The slice's gradient through the graph cache (rtt.render) at
-    GRAPH_MEMORY_CELLS, live: the first call's peak (the eager warm-up,
-    then the capture into the graphs' private pools) and wall, the
-    reserved memory the cached graphs keep after it, and a replay's peak
-    and wall.  The 1024x1024 x 32 spp cell stays eager: a graph pool
-    beside the warm-up's blocks would not fit the card."""
+    """The slice's gradient through the graph cache (rtt.render), live, in
+    the sequence GRAPH_MEMORY_CALLS: each key's first call runs eagerly
+    (measured), its second captures, later ones replay; a key whose
+    graphs would not fit the card runs eagerly from its second call on
+    (graphs.EAGER["memory"]).  256x256 alone first; then, with no clear()
+    between them, a 1024x1024 x 16 spp key, a second one (the gradient
+    w.r.t. the sphere's vertices alone), whose first call releases the
+    first key's graphs, the 32 spp key, which runs eagerly beside what
+    the cache holds, the second 16 spp key again (it captures again) and
+    the 32 spp key again (its eager run releases that key's graphs
+    first).  Per call: its wall and peak, the captures and eager calls
+    it made, and the bytes each cached key keeps after it (the cache's
+    count) beside the reserved memory.  No call may run out of memory."""
     rows = []
-    for res, spp in GRAPH_MEMORY_CELLS:
-        scene = make_slice_scene(res=res, device="cuda")
+    scenes = {}
+    graphs.clear()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    for label, res, spp, n_leaves, calls in GRAPH_MEMORY_CALLS:
+        if res not in scenes:
+            scenes.clear()
+            graphs.clear()
+            torch.cuda.empty_cache()
+            scenes[res] = make_slice_scene(res=res, device="cuda")
+        scene = scenes[res]
         o = rtt.RenderOptions(num_samples=spp, max_bounces=1)
-        graphs.clear()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_reserved()
-        row = {"res": list(res), "spp": spp}
-        for call in ("first", "replay"):
+        leaves = slice_leaves(scene)[:n_leaves]
+        for call in range(calls):
+            cap0, eager0 = dict(graphs.CAPTURES), graphs.EAGER["memory"]
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            g = gradient(scene, o)
-            torch.cuda.synchronize()
-            row[f"{call}_ms"] = (time.perf_counter() - t0) * 1e3
-            row[f"{call}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            for x in leaves:
+                x.requires_grad_(True)
+            try:
+                t0 = time.perf_counter()
+                g = torch.autograd.grad(
+                    rtt.render(scene, o, seed=SEED).sum(), leaves)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                for x in leaves:
+                    x.requires_grad_(False)
             _check(all(bool(torch.isfinite(x).all()) for x in g),
-                   f"graphed {res} {spp}spp: non-finite gradient")
+                   f"graphed memory, {label}: non-finite gradient")
             del g
             torch.cuda.empty_cache()
-            if call == "first":
-                row["cache_holds_mib"] = (torch.cuda.memory_reserved()
-                                          - base) / 2**20
-        rows.append(row)
-        print(f"[memory] {res[0]}x{res[1]} {spp}spp graphed: first call "
-              f"(warm-up and capture) peak {row['first_peak_mib']:.1f} MiB, "
-              f"{row['first_ms']:.1f} ms; the cached graphs keep "
-              f"{row['cache_holds_mib']:.1f} MiB reserved; a replay peaks at "
-              f"{row['replay_peak_mib']:.1f} MiB, {row['replay_ms']:.1f} ms; "
-              f"{smi_line}", flush=True)
-        graphs.clear()
-        del scene
-        torch.cuda.empty_cache()
+            kept = [b / 2**20 for b in graphs.cached_bytes().values()]
+            row = {"key": label, "call": call, "ms": ms,
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                   "captures": {k: graphs.CAPTURES[k] - cap0[k]
+                                for k in cap0},
+                   "eager_by_memory": graphs.EAGER["memory"] - eager0,
+                   "keys_cached": len(kept),
+                   "kept_mib": sorted(kept),
+                   "reserved_mib": (torch.cuda.memory_reserved() - base)
+                   / 2**20}
+            rows.append(row)
+            print(f"[memory] graph cache, {label}, call {call + 1}: "
+                  f"{ms:.1f} ms, peak {row['peak_mib']:.1f} MiB; captures "
+                  f"{row['captures']}, eager by memory "
+                  f"{row['eager_by_memory']}; {len(kept)} key(s) cached, "
+                  f"keeping {[round(b, 1) for b in row['kept_mib']]} MiB "
+                  f"(reserved {row['reserved_mib']:.1f} MiB); {smi_line}",
+                  flush=True)
+    by = lambda i, c: rows[sum(n for *_, n in GRAPH_MEMORY_CALLS[:i]) + c]
+    _check(all(by(i, 1)["captures"]["backward"] == 1 for i in (0, 1, 2)),
+           "a 16 spp or 256x256 key did not capture at its second call")
+    _check(by(2, 0)["kept_mib"][-1] == 0.0 and by(2, 1)["kept_mib"].count(
+        0.0) == 1, "the second 16 spp key did not evict the first")
+    _check(by(3, 1)["eager_by_memory"] == 2,
+           "the 32 spp key captured; the cache predicted it would not fit")
+    _check(by(4, 0)["captures"]["backward"] == 1
+           and by(5, 0)["eager_by_memory"] == 2
+           and all(b == 0.0 for b in by(5, 0)["kept_mib"]),
+           "the 32 spp key's eager call did not release the 16 spp graphs")
+    graphs.clear()
+    scenes.clear()
+    torch.cuda.empty_cache()
     print(json.dumps({"memory_graphed": rows}), flush=True)
     return rows
 
 
-def memory_main():
+def memory_main(eager=True):
+    """--memory: phase_memory (eager) then graphed_memory; --graph-memory:
+    graphed_memory alone."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
     phase_build()
     smi_line = phase_device()
-    with graphs.disable():
-        phase_memory(smi_line)
+    if eager:
+        with graphs.disable():
+            phase_memory(smi_line)
     graphed_memory(smi_line)
     print(smi_line)
     return 0
@@ -3106,7 +3397,7 @@ def phase_cards(world, smi_lines):
     torch.cuda.empty_cache()
 
     ranks = spawn_ranks(world, [f"cuda:{r}" for r in range(world)],
-                        CARDS_CELLS, False, "nccl")
+                        CARDS_CELLS, False, "nccl", mixed=True)
     lap(f"cards: {world} ranks (spawned)")
 
     rows = []
@@ -3133,9 +3424,44 @@ def phase_cards(world, smi_lines):
               f"{row['launches_per_rank'][0]}; peak MiB one process "
               f"{ref['peak_mib']}, per rank {row['peak_mib_per_rank']}",
               flush=True)
+    rows.append(check_mixed_routes(
+        [r_[-1] for r_ in ranks], refs[CARDS_CELLS.index(SLICE_CELL)]))
     for line in smi_lines:
         print(f"[cards] {line}", flush=True)
     return rows
+
+
+def check_mixed_routes(ranks, ref):
+    """mixed_routes' rows of each rank against one process's gradient
+    (ref, at SLICE_CELL): at every call each rank took the route its
+    emptied cache gives (eager, capture, replay), the ranks' gradients
+    are equal and each within SHARD_L2_MAX relative L2 of ref.  Returns
+    the row for the JSON line."""
+    none, both = {"forward": 0, "backward": 0}, {"forward": 1, "backward": 1}
+    routes = []
+    for call in range(MIXED_CALLS):
+        got = [out[call] for out in ranks]
+        # each rank's calls since its cache was emptied
+        since = [call if call <= r else call - r - 1
+                 for r in range(len(ranks))]
+        routes.append([("eager", "capture", "replay")[min(n, 2)]
+                       for n in since])
+        want = [both if n == 1 else none for n in since]
+        l2 = max(rel_l2(a, b) for out in got
+                 for a, b in zip(out["grads"], ref["grads"]))
+        print(f"[cards] mixed routes, call {call + 1}: routes by rank "
+              f"{routes[-1]}, captures {[out['captures'] for out in got]}; "
+              f"max relative L2 against one process {l2:.3e} (gate "
+              f"{SHARD_L2_MAX})", flush=True)
+        _check([out["captures"] for out in got] == want,
+               f"mixed routes, call {call + 1}: captures "
+               f"{[out['captures'] for out in got]}, want {want}")
+        _check(l2 <= SHARD_L2_MAX, f"mixed routes, call {call + 1}: "
+               f"relative L2 {l2}")
+        _check(all(torch.equal(a, b) for out in got
+                   for a, b in zip(out["grads"], got[0]["grads"])),
+               f"mixed routes, call {call + 1}: the ranks' gradients differ")
+    return {"cell": "mixed routes", "routes": routes}
 
 
 def cards_main(world):
@@ -3219,6 +3545,10 @@ def main():
     lap("sharded")
     graph_row = phase_graph(scene, opts, smi_line)
     lap("graph")
+    so_row = phase_second_order(scene, opts, smi_line)
+    lap("second_order")
+    tut_rows = phase_tutorials(smi_line)
+    lap("tutorials")
 
     kernels = []
     for kind, rows in per.items():
@@ -3298,6 +3628,15 @@ def main():
                             for name, row in graph_row["paths"].items()
                             if "nodes_total" in row},
             "memory": graph_row["memory"], "big": graph_row["big"]}
+        kernels[-1]["second_order"] = {
+            "launches": so_row["launches"][kind],
+            **{name: {k: row[k] for k in ("graphed_ms", "eager_ms")}
+               for name, row in so_row["routes"].items()}}
+        kernels[-1]["tutorials"] = {
+            name: {"launches": row["launches"][kind],
+                   "step_ms": row["step_ms"],
+                   "eager_step_ms": row["eager_step_ms"]}
+            for name, row in tut_rows.items()}
         if kind == "any_hit":
             kernels[-1]["envtex"]["envmap_shadow_batch"] = {
                 k: env_shadow[k] for k in ("ms", "plain_ms", "bound_ms")}
@@ -3320,6 +3659,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--memory"]:
         sys.exit(memory_main())
+    if sys.argv[1:] == ["--graph-memory"]:
+        sys.exit(memory_main(eager=False))
     if sys.argv[1:2] == ["--cards"] and len(sys.argv) == 3:
         sys.exit(cards_main(int(sys.argv[2])))
     sys.exit(main())

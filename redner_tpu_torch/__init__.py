@@ -28,8 +28,18 @@ and the plain queries; the compiled render: on a card, `render`,
 `render_image` (with or without autograd), `screen_gradient_image` and the
 sharded entry points over NCCL replay cached CUDA graphs (`graphs.py`);
 `make_render` gives the eager function and `graphs.disable()` runs every
-entry point eagerly.  torch.autograd through
-`render_image` alone gives only the continuous gradients.
+entry point eagerly; the graph cache is bounded by the device memory its
+graphs keep (`graphs.cached_bytes()`), and a key whose graphs do not fit
+runs eagerly.  torch.autograd through `render_image` alone gives only the
+continuous gradients.
+
+Second derivatives: `torch.autograd.grad(..., create_graph=True)` through
+`render` or `render_image` gives a gradient with history, as JAX's
+reverse-over-reverse does (the backward is differentiated through the
+saved scene tensors and the incoming gradient; the image that the
+recorded gradient depends on is differentiated continuously, as JAX
+differentiates a custom_vjp's forward).  Under a pixel sharding over a
+process group they are not supported yet and raise NotImplementedError.
 
 The pyredner-style front end sits on top: `redner_tpu_torch.frontend`
 (`import redner_tpu_torch.frontend as pyredner`: redner_torch's classes,
@@ -43,6 +53,8 @@ This package imports neither JAX nor redner_tpu.
 
 from redner_tpu_torch.device import (get_device, resolve_device,
                                      set_device, set_numerics, use_gpu)
+
+__version__ = "0.1.0"
 
 set_numerics()
 

@@ -27,7 +27,7 @@ def const(values, dtype, device, key=None):
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 f"redner_tpu_torch: constant {k[0]!r} first asked for "
-                "during CUDA-graph capture (the warm-up run did not make it)")
+                "during CUDA-graph capture (the eager first run did not make it)")
         host = torch.as_tensor(values() if callable(values) else values,
                                dtype=dtype)
         if device.type == "cuda":

@@ -51,6 +51,21 @@ def _group(sharding):
     return None if sharding is None else sharding.group
 
 
+def sharded(sharding) -> bool:
+    """Whether the sharding spans ranks through a process group (its
+    gradients then go through collectives)."""
+    return _group(sharding) is not None
+
+
+def no_second_order(what):
+    """Raises under create_graph (grad enabled in a backward)."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"redner_tpu_torch: second derivatives (create_graph=True) "
+            f"under a pixel sharding are not supported yet; {what} is not "
+            f"differentiable")
+
+
 def capturable(sharding) -> bool:
     """Whether a CUDA graph can hold this sharding's collectives: true
     without a group and for an NCCL group, false for gloo (its collectives
@@ -104,6 +119,7 @@ class _GatherLanes(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        no_second_order("the lanes' gather")
         start, stop = ctx.span
         return grad[start:stop], None, None, None
 
@@ -127,6 +143,7 @@ class _ReduceLeafGrads(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        no_second_order("the gradients' all-reduce")
         return (None, *all_reduce_grads(grads, ctx.sharding))
 
 

@@ -31,45 +31,72 @@ The key holds the group itself, so no two groups share a key, and a key
 whose group was destroyed is dropped at the next lookup (its graphs hold
 NCCL kernels of a communicator that is gone).
 
-Capture: the body runs once eagerly on a side stream (the warm-up builds
-the kernels, makes every kept constant and, under a sharding, runs the
-collectives once, which sets up the NCCL communicator outside the graph),
-the allocator's cached blocks are freed, then the body is captured.  A
-capture that fails raises, with the op that broke it in the exception
-chain; nothing falls back to an eager run.  Results handed to the caller
-are copies, never the static buffers, so a later replay cannot overwrite
-a result the caller kept.
+Capture: a key's first call of each graph kind runs its body eagerly
+(it builds the kernels, makes every kept constant and, under a sharding,
+runs the collectives once, which sets up the NCCL communicator outside the
+graph) and measures the device memory the run needs: the reserved bytes
+it added after the allocator's unused blocks were returned.  The next call
+captures the body and replays it.  A capture that fails raises, with the
+op that broke it in the exception chain; nothing falls back to an eager
+run.  Results handed to the caller are copies, never the static buffers,
+so a later replay cannot overwrite a result the caller kept.
 
 Collectives (pixel_sharding over an NCCL group): every rank builds the
-same key and runs the same body, so every rank warms up and then captures
-the same collectives in the same order; a replay on each rank runs them
-again, paired with the other ranks' replays (or eager calls) by their
-order on the communicator.  Only an NCCL group is captured
-(core.shardutil.capturable, chosen from the group's backend before
-anything is captured): a gloo collective is a host call.  What
+same key and runs the same body, and every call of a program runs the
+body's collectives exactly once, whatever route the call takes: an eager
+run, a replay, or a capture (which records the collectives without
+running them) followed by its replay.  So a rank's choices of route,
+which follow its own card's free memory, never change how many
+collectives it issues, and each call's collectives pair with the other
+ranks' by their order on the communicator.  Only an NCCL group is
+captured (core.shardutil.capturable, chosen from the group's backend
+before anything is captured): a gloo collective is a host call.  What
 ProcessGroupNCCL needs (found on an H100 with PyTorch 2.11 and its NCCL
-2.28): nothing beyond the warm-up.  PyTorch records a collective issued
-during capture on the capture stream and keeps it off the watchdog's
-list of work to poll, so the watchdog queries no event of the graph, and
-the default "global" capture mode, which fails a capture on an unsafe
-CUDA call from any thread, captures the graphed NCCL routes right after
-eager collectives (chip_smoke.py [sharded]).  Async error handling and
-the watchdog's timeouts are left as the process has them;
+2.28): nothing beyond the first, eager call.  PyTorch records a
+collective issued during capture on the capture stream and keeps it off
+the watchdog's list of work to poll, so the watchdog queries no event of
+the graph, and the default "global" capture mode, which fails a capture
+on an unsafe CUDA call from any thread, captures the graphed NCCL routes
+right after eager collectives (chip_smoke.py [sharded]).  Async error
+handling and the watchdog's timeouts are left as the process has them;
 TORCH_NCCL_BLOCKING_WAIT=1 would make each collective wait on the host,
 which no capture allows.
 
 disable() runs every entry point eagerly inside it (jax.disable_jit's
 counterpart): what launch counting and tracing from Python need.
 
-The cache keeps the programs of CACHE_SIZE keys and evicts the least
-recently used one: a program pins its graphs' memory pools, about one
-gradient's peak.
+The cache is bounded by the device memory its graphs keep.  A program
+pins its graphs' memory pools, about one gradient's peak (Program.bytes:
+the reserved memory each capture added).  Room is made by releasing
+graphs: other programs' on the same card, least recently used first,
+then the key's own graphs of other kinds, until the card's free memory
+covers what comes next.  Before a capture that is CAPTURE_MARGIN x the
+measured need of the graph, plus that of the key's other graph when it
+is not held (so that the two fit together); if the card cannot hold
+them with every other program's graphs released, the key runs eagerly
+from then on (Program.eager, counted in EAGER["memory"]).  The choice is
+made from measured bytes and the card's memory before anything is
+captured, never by catching an out-of-memory error.  Before every eager
+run (a key's first call, every call of a key that runs eagerly, a
+backward that records) room is made for the run's need as measured at
+its last run; a run not measured yet releases every other graph on the
+card first.  A program keeps its measurements when its graphs are
+released, so it captures again without an eager run.  A program that a
+pending autograd ctx holds stays valid: a released graph is captured
+again at its next call.  CACHE_SIZE bounds the number of keys besides.
+
+A backward asked to record (torch.autograd.grad(..., create_graph=True):
+grad enabled inside the backward), and the backward of a render that
+differentiates such a recorded gradient, do not replay: render_grad runs
+them eagerly on the saved tensors, whose history the second derivative
+needs (Program.run_eagerly("create_graph", ...), EAGER["create_graph"]).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import importlib
 import time
 
@@ -82,13 +109,21 @@ from redner_tpu_torch.ops import intersect_cuda as ic
 from redner_tpu_torch.scene import (scene_structure, scene_tensors,
                                     scene_with_tensors)
 
-CACHE_SIZE = 4
+CACHE_SIZE = 4  # keys, at most
+# A graph pool's reserved bytes over its body's measured need: the pools
+# keep whole segments (PERF.md: 43212.0 MiB kept for a 41926.8 MiB peak).
+CAPTURE_MARGIN = 1.05
+KINDS = ("forward", "backward")  # the graphs of a program
 _cache = collections.OrderedDict()  # key -> Program, least recent first
 _disabled = False
 
+# Calls that ran eagerly on a card outside disable(), by cause: a
+# backward that records (create_graph) and a key whose graphs do not fit.
+EAGER = {"create_graph": 0, "memory": 0}
+
 # Graphs captured and replayed since import, by graph kind; and of the
 # latest capture of each kind, the kernel launches it recorded (the kernel
-# nodes each of its replays runs) and its seconds, warm-up included.
+# nodes each of its replays runs), its seconds and its reserved bytes.
 CAPTURES = {"forward": 0, "backward": 0}
 REPLAYS = {"forward": 0, "backward": 0}
 LAST_CAPTURE = {"forward": None, "backward": None}
@@ -107,20 +142,58 @@ def _module_constants():
         if k.isupper() and isinstance(v, (bool, int, float, tuple)))
 
 
-class _Graph:
-    """One captured CUDA graph and its static outputs."""
+def _device_free(device):
+    """The card's free bytes once the allocator's unused blocks are
+    returned."""
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(device)[0]
 
-    def __init__(self, kind, body):
+
+def _measured(body, device):
+    """body() run eagerly -> (its result, the reserved bytes the run
+    added: what it needed beyond the blocks in use before it, the
+    allocator's unused blocks having been returned by _device_free).
+    The caller's peak-memory statistics are left as they are."""
+    before = torch.cuda.memory_reserved(device)
+    out = body()
+    return out, torch.cuda.memory_reserved(device) - before
+
+
+def _make_room(need, keep, spare=()):
+    """Releases graphs on keep's card until its free memory covers `need`
+    bytes: the other programs' (least recently used first), then keep's
+    own graphs of the kinds in `spare`; every one of them when need is
+    None (not measured yet).  Whether the free memory covers need."""
+    free = _device_free(keep.device)
+    held = [(p, k) for p in _cache.values()
+            if p is not keep and p.device == keep.device for k in KINDS]
+    for prog, kind in held + [(keep, k) for k in spare]:
+        if need is not None and free >= need:
+            break
+        if prog.graphs[kind] is not None:
+            prog.graphs[kind] = None
+            gc.collect()  # the pool goes with the last reference
+            free = _device_free(keep.device)
+    return need is not None and free >= need
+
+
+def _copy(out):
+    """Fresh tensors of a graph's outputs (an image, or gradients with
+    None)."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return tuple(None if g is None else g.clone() for g in out)
+
+
+class _Graph:
+    """One captured CUDA graph, its static outputs and the reserved bytes
+    its capture added."""
+
+    def __init__(self, kind, body, device):
         t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            body()  # warm-up
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
         self.graph = torch.cuda.CUDAGraph()
         before = dict(ic.LAUNCHES)
+        reserved = torch.cuda.memory_reserved(device)
         try:
             with torch.cuda.graph(self.graph):
                 self.out = body()
@@ -128,12 +201,13 @@ class _Graph:
             raise RuntimeError(
                 f"redner_tpu_torch: CUDA-graph capture of the {kind} failed "
                 f"(the chained exception names the op): {e}") from e
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
+        self.bytes = torch.cuda.memory_reserved(device) - reserved
         self.kind = kind
         CAPTURES[kind] += 1
         LAST_CAPTURE[kind] = {
             "launches": {k: ic.LAUNCHES[k] - before[k] for k in before},
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "bytes": self.bytes}
 
     def replay(self):
         self.graph.replay()
@@ -149,12 +223,19 @@ class Program:
     def __init__(self, scene, forward_body, backward_body=None):
         self.static = [torch.empty_like(t) for t in scene_tensors(scene)]
         self.scene = scene_with_tensors(scene, self.static)
-        self.seed = torch.zeros((), dtype=torch.int64,
-                                device=self.static[0].device)
+        self.device = self.static[0].device
+        self.seed = torch.zeros((), dtype=torch.int64, device=self.device)
         self.ct = None
         self._forward_body = forward_body
         self._backward_body = backward_body
-        self.forward_graph = self.backward_graph = None
+        self.graphs = dict.fromkeys(KINDS)
+        self.needs = {}  # run kind -> the reserved bytes its last run added
+        self.eager = False  # the key's graphs do not fit the card
+
+    @property
+    def bytes(self):
+        """The reserved bytes this program's graphs keep."""
+        return sum(g.bytes for g in self.graphs.values() if g is not None)
 
     def _load(self, tensors, seed):
         with torch.no_grad():
@@ -162,15 +243,55 @@ class Program:
                 s.copy_(t)
             self.seed.copy_(seed)
 
+    def _forward(self):
+        return self._forward_body(self.scene, self.seed)
+
+    def _backward(self):
+        return self._backward_body(self.scene, self.seed, self.ct)
+
+    def run_eagerly(self, kind, body):
+        """body() run eagerly, after room is made on the card for the need
+        its kind measured at its last run (the key's own graphs of other
+        kinds released last); the need of this run kept."""
+        _make_room(self.needs.get(kind), self, [k for k in KINDS
+                                                if k != kind])
+        out, need = _measured(body, self.device)
+        self.needs[kind] = max(need, self.needs.get(kind, 0))
+        return out
+
+    def _run(self, kind):
+        """The graph `kind` replayed (captured first if its body has run
+        and it fits the card), or its body run eagerly; fresh tensors."""
+        graph = self.graphs[kind]
+        if graph is None and kind in self.needs and not self.eager:
+            graph = self._capture(kind)
+        if graph is not None:
+            graph.replay()
+            return _copy(graph.out)
+        if self.eager:
+            EAGER["memory"] += 1
+        return self.run_eagerly(kind, getattr(self, "_" + kind))
+
+    def _capture(self, kind):
+        """The graph of `kind`, captured once the card has room for it and
+        for the key's other graph where that is measured but not held;
+        else None, and the key runs eagerly from then on."""
+        need = CAPTURE_MARGIN * sum(
+            self.needs[k] for k in KINDS
+            if k in self.needs and (k == kind or self.graphs[k] is None))
+        if not _make_room(need, self):
+            self.eager = True
+            self.graphs = dict.fromkeys(KINDS)
+            return None
+        self.graphs[kind] = _Graph(kind, getattr(self, "_" + kind),
+                                   self.device)
+        return self.graphs[kind]
+
     def forward(self, tensors, seed):
         """The image of the scene tensors (scene_tensors order) at seed, a
         fresh tensor."""
         self._load(tensors, seed)
-        if self.forward_graph is None:
-            self.forward_graph = _Graph(
-                "forward", lambda: self._forward_body(self.scene, self.seed))
-        self.forward_graph.replay()
-        return self.forward_graph.out.clone()
+        return self._run("forward")
 
     def backward(self, tensors, seed, ct):
         """The gradients of <image, ct>, fresh tensors (None where none)."""
@@ -179,13 +300,7 @@ class Program:
             self.ct = torch.empty_like(ct)
         with torch.no_grad():
             self.ct.copy_(ct)
-        if self.backward_graph is None:
-            self.backward_graph = _Graph(
-                "backward",
-                lambda: self._backward_body(self.scene, self.seed, self.ct))
-        self.backward_graph.replay()
-        return tuple(None if g is None else g.clone()
-                     for g in self.backward_graph.out)
+        return self._run("backward")
 
 
 def _mesh_key(sharding):
@@ -263,6 +378,11 @@ def disable():
         yield
     finally:
         _disabled = saved
+
+
+def cached_bytes():
+    """The reserved bytes the cached programs' graphs keep, by key."""
+    return {key: prog.bytes for key, prog in _cache.items()}
 
 
 def clear():

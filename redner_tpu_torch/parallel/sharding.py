@@ -147,7 +147,7 @@ def make_train_step(options: RenderOptions, mesh: Optional[Mesh] = None,
     use_edge_sampling=True renders with the edge-sampled `render`
     (visibility gradients too); False with render_image (continuous
     gradients only).  Over an NCCL group both replay their forward and
-    backward graphs (one capture each, at the first step); the loss and
+    backward graphs (one capture each, at the second step); the loss and
     the update are a few eager ops.  trainable: a predicate on a leaf's path name, as
     serialize.state_dict names it (e.g. `lambda p: "diffuse" in p`);
     None updates every float leaf."""

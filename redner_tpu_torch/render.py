@@ -783,12 +783,12 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
     rank holds the one-process gradient.
 
     On a card scene the call replays cached CUDA graphs of its
-    configuration (graphs.py), captured on the first call, and returns a
-    fresh tensor: when autograd is not recording (grad disabled, or no
-    tensor of the scene requires grad) one forward graph (the JAX
-    package's _render_image_jitted); under autograd a forward graph and,
-    at the first backward, a backward graph that re-renders under autograd
-    at the same options and seed (jax.grad of it;
+    configuration (graphs.py; the first call of each graph runs eagerly,
+    the second captures it), and returns a fresh tensor: when autograd is
+    not recording (grad disabled, or no tensor of the scene requires
+    grad) one forward graph (the JAX package's _render_image_jitted);
+    under autograd a forward graph and a backward graph that re-renders
+    under autograd at the same options and seed (jax.grad of it;
     render_grad.graphed_render_image).  So does a pixel sharding over an
     NCCL group.  A CPU scene, a gloo group and graphs.disable() run the
     sample loop eagerly."""

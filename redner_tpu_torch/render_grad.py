@@ -29,14 +29,30 @@ all-reduce, so every rank holds the one-process gradient.
 
 `render` on a card scene replays cached CUDA graphs (graphs.py; the JAX
 package's jit cache of `render`, :186-205): the first call for a
-configuration captures the forward, the first backward captures the
-backward, later calls replay them.  Under a pixel sharding that holds for
+configuration runs the forward eagerly and measures it, the second
+captures it, and so for the backward; later calls replay them.  Under a pixel sharding that holds for
 an NCCL group (its collectives are captured with the rest); a gloo group
 runs make_render's eager function, chosen from the group's backend before
 anything is captured (graphs.replays).  `make_render(options)` is the
 eager function (JAX `make_render`, :46): every call runs from Python on
 any device, which is what launch counting and tracing need; a CPU scene
 runs it too.
+
+Second derivatives (torch.autograd.grad(..., create_graph=True)): JAX
+differentiates render's custom_vjp bwd through the residual scene and the
+cotangent, with only its stop_gradients, and the forward's image as
+plain code.  The port does the same: a backward entered with grad
+enabled keeps the saved tensors and ct_img (_scene_grads) and passes its
+gradients through _Recorded, which notes on the render's ctx each
+autograd pass that differentiates them; in such a pass the render's
+backward (the outer pass through the image) is the continuous one at the
+forward's options and seed (_backward).  Any other backward of the same
+render, such as a first-order loss.backward() after the recording one,
+stays edge-sampled.  A single pass that differentiates a recorded
+gradient and the image's own loss together gets the continuous backward
+for both.  On a card these backwards run eagerly.  Under a pixel
+sharding over a process group they raise NotImplementedError (the
+all-reduce of the gradients is not differentiable).
 
 `graphed_render_image` is `render_image` under autograd on a card (JAX:
 jax.grad of `_render_image_jitted`): the same two graphs, its backward
@@ -49,7 +65,8 @@ from __future__ import annotations
 import torch
 
 from redner_tpu_torch import graphs
-from redner_tpu_torch.core.shardutil import all_reduce_grads
+from redner_tpu_torch.core.shardutil import (all_reduce_grads,
+                                             no_second_order, sharded)
 from redner_tpu_torch.edge import primary_edge_gradients
 from redner_tpu_torch.render import (RenderOptions, _render_image_impl,
                                      graph_forward, render_sample)
@@ -90,8 +107,23 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
             num_samples=options.num_samples_backward)
     roff = options.channel_info.radiance_dimension
     use_secondary = options.use_secondary_edge_sampling and roff >= 0
-    ct_img = ct_img.detach()
-    leaves = [x.detach().requires_grad_(n) for x, n in zip(tensors, needs)]
+    # Under create_graph (grad enabled on entry, as autograd runs a
+    # backward that it records) the re-render is differentiated as JAX
+    # differentiates its bwd: through the saved tensors and ct_img, with
+    # only the stop_gradients of the reference (the secondary radiance
+    # adjoint, detached in _render_image_impl; the primary surrogate's
+    # weights, in edge.primary_edge_gradients).  A view per leaf gives
+    # each scene field its own gradient, as the detached copies do.
+    create_graph = torch.is_grad_enabled()
+    if create_graph:
+        if sharded(sharding):
+            no_second_order("the gradients' all-reduce")
+        leaves = [x.view_as(x) if n else x.detach()
+                  for x, n in zip(tensors, needs)]
+    else:
+        ct_img = ct_img.detach()
+        leaves = [x.detach().requires_grad_(n)
+                  for x, n in zip(tensors, needs)]
     top, left, bottom, right = scene.camera.viewport_or_full
     num_edge_samples = default_num_edge_samples(
         options, (right - left) * (bottom - top))
@@ -114,8 +146,9 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
         # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
         # Under a sharding each term is this rank's part of the sum.
         total = torch.sum(img * ct_img) + surr
-        wrt = [x for x in leaves if x.requires_grad]
-        grads = torch.autograd.grad(total, wrt, allow_unused=True)
+        wrt = [x for x, n in zip(leaves, needs) if n]
+        grads = torch.autograd.grad(total, wrt, allow_unused=True,
+                                    create_graph=create_graph)
     if sharding is not None:
         # Zeros for unused leaves: every rank then reduces the same
         # shapes, whichever leaves its own lanes reach.
@@ -124,6 +157,62 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
              for x, g in zip(wrt, grads)], sharding)
     grads = iter(grads)
     return tuple(next(grads) if n else None for n in needs)
+
+
+def _continuous(options):
+    """options with both edge samplers off and the backward at the
+    forward's sample count: autograd through render_image."""
+    return options._copy_with(
+        use_primary_edge_sampling=False, use_secondary_edge_sampling=False,
+        num_samples_backward=options.num_samples)
+
+
+def _graph_task():
+    """The id of the autograd pass running this backward."""
+    return torch._C._current_graph_task_id()
+
+
+class _Recorded(torch.autograd.Function):
+    """The identity on the gradients a render's backward recorded
+    (create_graph): a pass that differentiates them notes its id on the
+    render's ctx (it runs before the render's own backward in that pass,
+    which lies below it through ct_img)."""
+
+    @staticmethod
+    def forward(ctx, render_ctx, *grads):
+        ctx.render_ctx = render_ctx
+        return tuple(g.view_as(g) for g in grads)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        ctx.render_ctx.outer_passes.add(_graph_task())
+        return (None, *cts)
+
+
+def _differentiates_recorded(ctx):
+    """Whether this backward of a render belongs to a pass that
+    differentiates a gradient the render recorded."""
+    return _graph_task() in ctx.outer_passes
+
+
+def _backward(ctx, scene, tensors, seed, ct_img, options, correlated,
+              engine, sharding):
+    """The gradients of one render's backward.  In a pass that
+    differentiates a gradient this render recorded (create_graph), the
+    continuous one at the forward's options and seed: JAX differentiates
+    a custom_vjp's forward as plain code when it differentiates its
+    backward (reverse over reverse), so the image that the recorded
+    gradient depends on carries no edge terms.  A backward that records
+    passes its gradients through _Recorded."""
+    if _differentiates_recorded(ctx):
+        options, correlated = _continuous(options), True
+    grads = _scene_grads(scene, tensors, ctx.needs_input_grad[-len(tensors):],
+                         options, seed, correlated, engine, sharding, ct_img)
+    if not torch.is_grad_enabled():
+        return grads
+    kept = [g for g in grads if g is not None]
+    marked = iter(_Recorded.apply(ctx, *kept))
+    return tuple(None if g is None else next(marked) for g in grads)
 
 
 class _RenderFunction(torch.autograd.Function):
@@ -140,6 +229,7 @@ class _RenderFunction(torch.autograd.Function):
         ctx.correlated = correlated
         ctx.engine = engine
         ctx.pixel_sharding = pixel_sharding
+        ctx.outer_passes = set()
         ctx.save_for_backward(seed, *tensors)
         return _render_image_impl(scene_with_tensors(scene, tensors), options,
                                   seed, engine, pixel_sharding=pixel_sharding)
@@ -148,25 +238,38 @@ class _RenderFunction(torch.autograd.Function):
     def backward(ctx, ct_img):
         # The correlated flag is the one snapshotted when render was called.
         seed, *tensors = ctx.saved_tensors
-        return (None,) * 6 + _scene_grads(
-            ctx.scene, tensors, ctx.needs_input_grad[6:], ctx.options, seed,
-            ctx.correlated, ctx.engine, ctx.pixel_sharding, ct_img)
+        return (None,) * 6 + _backward(
+            ctx, ctx.scene, tensors, seed, ct_img, ctx.options,
+            ctx.correlated, ctx.engine, ctx.pixel_sharding)
 
 
 class _GraphedRender(torch.autograd.Function):
-    """The compiled render: forward(program, seed, *tensors) replays the
-    program's forward graph, backward its backward graph."""
+    """The compiled render: forward(program, spec, seed, *tensors) replays
+    the program's forward graph, backward its backward graph.  spec:
+    (backward options, correlated, engine, pixel_sharding) of the
+    program's backward body, which a backward that records, or belongs to
+    a pass that differentiates a recorded gradient, runs eagerly on the
+    saved tensors (graphs.EAGER["create_graph"]): a graph's outputs carry
+    no history."""
 
     @staticmethod
-    def forward(ctx, program, seed, *tensors):
+    def forward(ctx, program, spec, seed, *tensors):
         ctx.program = program
+        ctx.spec = spec
+        ctx.outer_passes = set()
         ctx.save_for_backward(seed, *tensors)
         return program.forward(tensors, seed)
 
     @staticmethod
     def backward(ctx, ct_img):
         seed, *tensors = ctx.saved_tensors
-        return (None, None) + ctx.program.backward(tensors, seed, ct_img)
+        if not (torch.is_grad_enabled() or _differentiates_recorded(ctx)):
+            return (None,) * 3 + ctx.program.backward(tensors, seed, ct_img)
+        graphs.EAGER["create_graph"] += 1
+        scene = scene_with_tensors(ctx.program.scene, tensors)
+        return (None,) * 3 + ctx.program.run_eagerly(
+            "create_graph", lambda: _backward(ctx, scene, tensors, seed,
+                                              ct_img, *ctx.spec))
 
 
 def _scene_device(scene):
@@ -207,8 +310,8 @@ def _make_program(options, correlated, engine, sharding=None,
             return _scene_grads(s, scene_tensors(s), needs, backward_options,
                                 seed, correlated, engine, sharding, ct)
 
-        return graphs.Program(scene, graph_forward(options, engine, sharding),
-                              backward)
+        return graphs.Program(
+            scene, graph_forward(options, engine, sharding), backward)
 
     return make
 
@@ -220,8 +323,8 @@ def render(scene, options: RenderOptions, seed=0, engine=None,
     tensor of the scene (scene_leaves) the reference's scene gradient.
 
     On a card scene the call replays the cached CUDA graphs of its
-    configuration (graphs.py), capturing them on the first call (the
-    forward) and the first backward; the image and the gradients are fresh
+    configuration (graphs.py), capturing each at its second call (the
+    first runs eagerly); the image and the gradients are fresh
     tensors.  So does a pixel sharding over an NCCL group.  A CPU scene, a
     gloo group and graphs.disable() run make_render's eager function.
 
@@ -238,8 +341,9 @@ def render(scene, options: RenderOptions, seed=0, engine=None,
         "render", scene, options, _use_correlated, engine,
         _make_program(options, _use_correlated, engine, pixel_sharding),
         pixel_sharding)
-    return _GraphedRender.apply(prog, _as_u32(seed, dev),
-                                *scene_tensors(scene))
+    return _GraphedRender.apply(
+        prog, (options, _use_correlated, engine, pixel_sharding),
+        _as_u32(seed, dev), *scene_tensors(scene))
 
 
 def _render_image_program(options, engine, sharding=None):
@@ -247,10 +351,8 @@ def _render_image_program(options, engine, sharding=None):
     program with the backward at the forward's own options and seed
     (correlated) and both edge samplers off, which is autograd through
     render_image (jax.grad of _render_image_jitted)."""
-    continuous = options._copy_with(
-        use_primary_edge_sampling=False, use_secondary_edge_sampling=False,
-        num_samples_backward=options.num_samples)
-    return _make_program(options, True, engine, sharding, continuous)
+    return _make_program(options, True, engine, sharding,
+                         _continuous(options))
 
 
 def graphed_render_image(scene, options: RenderOptions, seed, engine,
@@ -264,4 +366,6 @@ def graphed_render_image(scene, options: RenderOptions, seed, engine,
         "render_image_grad", scene, options, None, engine,
         _render_image_program(options, engine, pixel_sharding),
         pixel_sharding)
-    return _GraphedRender.apply(prog, seed, *scene_tensors(scene))
+    return _GraphedRender.apply(
+        prog, (_continuous(options), True, engine, pixel_sharding), seed,
+        *scene_tensors(scene))

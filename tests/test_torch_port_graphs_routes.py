@@ -72,7 +72,8 @@ def _continuous_body(ts, options):
     leaves = with_grad_leaves(ts)
     prog = _render_image_program(options, None)(ts)
     img = prog._forward_body(ts, _seed())
-    grads = prog._backward_body(ts, _seed(), torch.as_tensor(_weight()))
+    with torch.no_grad():  # as autograd runs a first-order backward
+        grads = prog._backward_body(ts, _seed(), torch.as_tensor(_weight()))
     at = {id(t): i for i, t in enumerate(scene_tensors(ts))}
     return img, [grads[at[id(x)]] for x in leaves]
 

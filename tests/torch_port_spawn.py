@@ -197,6 +197,7 @@ def program_bodies(scene, options_kw, seed, ct, sharding=None):
                                                         sharding))):
         prog = make(scene)
         img = prog._forward_body(scene, seed)
-        grads = prog._backward_body(scene, seed, ct)
+        with torch.no_grad():  # as autograd runs a first-order backward
+            grads = prog._backward_body(scene, seed, ct)
         out[kind] = (img, [grads[at[id(x)]] for x in leaves])
     return out
