@@ -127,7 +127,10 @@ Phases (any failure exits non-zero):
              sphere's diffuse (the loss falls at every step and matches
              one process within rtol 1e-3); launches per rank (28 + 14 by
              the code), peak memory per rank, fwd+bwd of one process
-             against the two ranks'.  The gloo pair runs eagerly, by its
+             against the two ranks'; the second derivative through
+             render_sharded and render_image_sharded on the gloo pair and
+             the one-rank NCCL group (checked in [second_order]).  The
+             gloo pair runs eagerly, by its
              group's backend (its calls capture nothing).  The one-rank
              NCCL group also replays graphs with its collectives captured:
              render_sharded graphed against its eager route and against
@@ -170,6 +173,11 @@ Phases (any failure exits non-zero):
              backward re-renders the forward), its kernels against their
              plain versions on every batch, its wall eager and graphed
              (median of 3) and the busy and idle share of one graphed run;
+             then the screen gradient's loop (SCREEN_ROUNDS rounds,
+             --screen-rounds N): its graph released and captured again,
+             then two eager runs, every image within relative L2 1e-4 of
+             the others (a round that fails saves its images and the
+             eager runs' primary-edge samples under OUT_DIR);
  14. second_order  the slice's second derivative (256x256, 4 spp):
              d/dleaves sum_i <u_i, d sum(image^2) / d leaf_i> through
              rtt.render and rtt.render_image, the first gradient taken
@@ -177,7 +185,13 @@ Phases (any failure exits non-zero):
              of the image, run eagerly on the graph cache's route:
              graphs.EAGER["create_graph"], 6 per route), against
              graphs.disable(): relative L2 <= 1e-4 per leaf, printed
-             beside eager against eager; walls; the launches of the phase;
+             beside eager against eager; walls; the launches of the phase.
+             Then the sharded second derivatives that [sharded] computed
+             (render_sharded and render_image_sharded on the two gloo
+             ranks sharing the card and on the one-rank NCCL group)
+             against the one-process eager one: relative L2 <= 1e-4 per
+             leaf, finite, the gloo ranks equal, both kernels launched in
+             each run, and each run's wall;
  15. tutorials  each file of tutorials/torch_port at its own size (64x64;
              05: 32x32 then 64x64 at 2 bounces) for 6 steps (05: 4 a
              level), graphed and inside graphs.disable(): losses finite,
@@ -223,12 +237,21 @@ of one graphed card against the ranks'; then MIXED_CALLS gradients at
 256x256 x 4 spp in which the ranks take different routes at the same
 call (each rank empties its graph cache before a different call, so one
 runs eagerly while others capture or replay): every call's gradients
-equal on every rank and within relative L2 1e-4 of one process's.
+equal on every rank and within relative L2 1e-4 of one process's; and
+MIXED_CALLS second derivatives through render_sharded and
+render_image_sharded in the same way (the forwards on different routes,
+the two eager backwards' collectives meeting across the ranks): equal on
+every rank and within relative L2 1e-4 of one process's.
+
+    python3 chip_smoke.py --screen-rounds N
+
+runs the whole script with N rounds of [graph]'s screen-gradient loop.
 
 It imports nothing of JAX or redner_tpu.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -244,15 +267,17 @@ import torch.distributed as dist
 import redner_tpu_torch as rtt
 import redner_tpu_torch.frontend as pyredner
 from redner_tpu_torch import accel, graphs
+from redner_tpu_torch import edge as edge_mod
 from redner_tpu_torch import sampler as sampler_mod
 from redner_tpu_torch.camera import sample_primary_rays
+from redner_tpu_torch.core import vecmath as vm
 from redner_tpu_torch.core.types import Ray
 from redner_tpu_torch.ops import intersect as plain
 from redner_tpu_torch.ops import intersect_cuda as ic
 from redner_tpu_torch.parallel.sharding import (make_mesh, make_train_step,
                                                 render_image_sharded,
                                                 render_sharded)
-from redner_tpu_torch.parallel.spawn import run_ranks
+from redner_tpu_torch.parallel.spawn import COLLECTIVE_TIMEOUT, run_ranks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2302,12 +2327,72 @@ def mixed_routes(mesh, cell=SLICE_CELL):
     return rows
 
 
-def _rank(devices, cells, train, mixed=False):
+SHARDED_SECOND_ORDER = ("render_sharded", "render_image_sharded")
+
+
+def sharded_second_order(scene, opts, mesh):
+    """second_order through render_sharded and render_image_sharded over
+    `mesh` (every rank starting each together) -> name -> {"h": the
+    leaves' second derivatives (CPU) and "launches": the kernels'
+    launches from Python in the first call (its eager forward and its two
+    eager backwards), "ms": the wall of a later call (on a graphed route,
+    after the call that captures the forward)}."""
+    fns = {"render_sharded": lambda s: render_sharded(s, opts, seed=SEED,
+                                                      mesh=mesh),
+           "render_image_sharded": lambda s: render_image_sharded(
+               s, opts, seed=SEED, mesh=mesh)}
+    out = {}
+    for name in SHARDED_SECOND_ORDER:
+        dist.barrier()
+        h, launches = counted(lambda: second_order(fns[name], scene))
+        out[name] = {"h": [x.cpu() for x in h], "launches": launches}
+    for name in SHARDED_SECOND_ORDER:  # walls, after the first calls
+        if graphs.replays(scene.camera.device, mesh):
+            second_order(fns[name], scene)  # the forward's capture
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second_order(fns[name], scene)
+        torch.cuda.synchronize()
+        out[name]["ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def mixed_second_order(mesh, cell=SLICE_CELL):
+    """MIXED_CALLS calls of sharded_second_order at `cell` over `mesh`,
+    this rank's graph cache emptied before call rank + 1, as in
+    mixed_routes: at one call the ranks' forwards take different routes
+    (eager, capture, replay) and their eager backwards must still issue
+    the same collectives.  Returns per call its second derivatives and
+    this rank's captures."""
+    res, spp = cell
+    scene = make_slice_scene(res=res, device=mesh.device)
+    opts = rtt.RenderOptions(num_samples=spp, max_bounces=1)
+    fns = {"render_sharded": render_sharded,
+           "render_image_sharded": render_image_sharded}
+    graphs.clear()
+    rows = []
+    for call in range(MIXED_CALLS):
+        if call == mesh.rank + 1:
+            graphs.clear()
+        before = dict(graphs.CAPTURES)
+        h = {name: [x.cpu() for x in second_order(
+                lambda s: fns[name](s, opts, seed=SEED, mesh=mesh), scene)]
+             for name in SHARDED_SECOND_ORDER}
+        rows.append({"h": h, "captures": {
+            k: graphs.CAPTURES[k] - before[k] for k in before}})
+    graphs.clear()
+    return rows
+
+
+def _rank(devices, cells, train, mixed=False, second=False):
     """One spawned rank (parallel.spawn.run_ranks) on
     devices[rank]: gradient_run over the mesh for each (resolution, spp)
     cell, on the route the group's backend picks (gloo: eager; NCCL:
     graphed); with train, also a profile of one gradient and the train
-    step's losses (on the first cell); with mixed, mixed_routes last."""
+    step's losses (on the first cell); with second, the first cell's
+    sharded_second_order; with mixed, mixed_routes and
+    mixed_second_order last."""
     dev = torch.device(devices[dist.get_rank()])
     torch.cuda.set_device(dev)
     mesh = make_mesh(dev)
@@ -2323,19 +2408,23 @@ def _rank(devices, cells, train, mixed=False):
                         lambda: gradient(scene, opts, mesh=mesh), top=4)
             out[-1]["losses"], out[-1]["step_ms"], _ = train_losses(opts,
                                                                     mesh)
+        if second and len(out) == 1:
+            out[-1]["second_order"] = sharded_second_order(scene, opts, mesh)
         del scene
         graphs.clear()
     if mixed:
         out.append(mixed_routes(mesh))
+        out.append(mixed_second_order(mesh))
     return out
 
 
-def spawn_ranks(world, devices, cells, train, backend, mixed=False):
+def spawn_ranks(world, devices, cells, train, backend, mixed=False,
+                second=False):
     """_rank on `world` spawned ranks -> per rank, its list of cells (and
-    with mixed, mixed_routes's rows last)."""
+    with mixed, mixed_routes's and mixed_second_order's rows last)."""
     with tempfile.TemporaryDirectory() as tmp:
-        return run_ranks(world, _rank, (devices, cells, train, mixed), tmp,
-                         backend=backend)
+        return run_ranks(world, _rank, (devices, cells, train, mixed, second),
+                         tmp, backend=backend)
 
 
 def _compare_sharded(tag, label, out, ref):
@@ -2422,12 +2511,16 @@ def phase_sharded(scene, opts, smi_line):
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
             "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
-            world_size=1)
+            world_size=1, timeout=COLLECTIVE_TIMEOUT)
         try:
             mesh = make_mesh(dev)
             with graphs.disable():
                 nccl = gradient_run(scene, opts, mesh)
             lap("sharded: one-rank NCCL group, eager")
+            graphs.clear()
+            nccl_second = sharded_second_order(scene, opts, mesh)
+            graphs.clear()
+            lap("sharded: one-rank NCCL group, second derivatives")
             graphs.clear()
             graphed = graph_route(
                 "render_sharded (one-rank NCCL group)",
@@ -2455,7 +2548,8 @@ def phase_sharded(scene, opts, smi_line):
     _compare_sharded("sharded", "one-rank NCCL group", nccl, ref)
 
     ranks = [cells[0] for cells in spawn_ranks(
-        SHARD_WORLD, [str(dev)] * SHARD_WORLD, [SLICE_CELL], True, "gloo")]
+        SHARD_WORLD, [str(dev)] * SHARD_WORLD, [SLICE_CELL], True, "gloo",
+        second=True)]
     lap(f"sharded: {SHARD_WORLD} gloo ranks (spawned)")
     _compare_ranks("sharded", "one card", ranks, ref)
     for r, out in enumerate(ranks):
@@ -2497,7 +2591,11 @@ def phase_sharded(scene, opts, smi_line):
             "nccl_graphed": {k: graphed.get(k) for k in (
                 "eager_ms", "graphed_ms", "capture_s", "max_image_diff",
                 "max_rel_l2", "busy_ms", "idle", "nodes_total")},
-            "nccl_train": train}
+            "nccl_train": train,
+            "second_order": {
+                **{f"gloo rank {r} of {SHARD_WORLD}": out["second_order"]
+                   for r, out in enumerate(ranks)},
+                "one-rank NCCL group": nccl_second}}
 
 
 # ----------------------------------------------------------------------
@@ -2673,6 +2771,172 @@ def graph_vs_eager(name, path, smi_line, tag="graph"):
           f"(all: {_walls(e_walls)}), graphed median {row['graphed_ms']:.3f} "
           f"ms (all: {_walls(g_walls)}); {smi_line}", flush=True)
     return row
+
+
+SCREEN_ROUNDS = 2  # rounds of screen_gradient_loop (--screen-rounds N)
+# Where a failed round's tensors go (results/ is not committed).
+OUT_DIR = os.environ.get("CHIP_SMOKE_OUT",
+                         os.path.join(ROOT, "results", "chip_smoke"))
+EDGE_SAMPLE_KEYS = ("f_plus", "f_minus", "px", "py", "pdf", "x_pix",
+                    "n_hat", "inside")
+
+
+def _release_graphs():
+    """Every cached program's graphs released, their measurements kept:
+    each key's next call captures again."""
+    for prog in graphs._cache.values():
+        prog.graphs = dict.fromkeys(graphs.KINDS)
+    gc.collect()
+
+
+def _recording_edge_samples(store):
+    """A stand-in for edge._sample_primary_edges that keeps a copy of each
+    call's samples in `store`."""
+    real = edge_mod._sample_primary_edges
+
+    def rec(*args, **kw):
+        out = real(*args, **kw)
+        store.append({k: out[k].detach().clone() for k in EDGE_SAMPLE_KEYS})
+        return out
+    return real, rec
+
+
+def _sample_differences(a, b, top=5):
+    """The primary-edge samples of two runs compared: per key, the lanes
+    that differ and the first few of them."""
+    out = {}
+    for k in EDGE_SAMPLE_KEYS:
+        x, y = a[k], b[k]
+        if x.shape != y.shape:
+            out[k] = f"shapes {tuple(x.shape)} and {tuple(y.shape)}"
+            continue
+        bad = (x != y).reshape(x.shape[0], -1).any(dim=1)
+        lanes = torch.nonzero(bad).reshape(-1)[:top].tolist()
+        out[k] = {"lanes": int(bad.sum()), "first": [
+            (i, x[i].tolist(), y[i].tolist()) for i in lanes]}
+    return out
+
+
+def screen_gradient_loop(path, rounds, smi_line):
+    """The screen gradient's route, in the script's order, `rounds` times:
+    its graph released and captured again (the key keeps its measured
+    need, so its next call captures) and replayed, then two eager runs
+    (graphs.disable()) whose primary-edge samples are recorded.  Gate:
+    every pair of the three images within GRAPH_L2_MAX relative L2 (the
+    route's gate; eager runs differ by the edge scatter's atomics).  A
+    round that fails saves its images and both eager runs' samples to
+    OUT_DIR/screen_gradient_round<i>.pt and prints the samples that
+    differ, then the script fails.  Returns the row."""
+    scene, _, _, fn = path
+    worst, failed = 0.0, []
+    for i in range(rounds):
+        _release_graphs()
+        before = dict(graphs.CAPTURES)
+        with torch.no_grad():
+            g = fn(scene, SEED)
+            if graphs.CAPTURES["forward"] == before["forward"]:
+                g = fn(scene, SEED)  # the key was evicted: this captures
+        samples = []
+        real, rec = _recording_edge_samples(samples)
+        edge_mod._sample_primary_edges = rec
+        try:
+            with graphs.disable(), torch.no_grad():
+                e1 = fn(scene, SEED)
+                e2 = fn(scene, SEED)
+        finally:
+            edge_mod._sample_primary_edges = real
+        torch.cuda.synchronize()
+        _check(graphs.CAPTURES["forward"] - before["forward"] == 1,
+               f"screen gradient loop, round {i + 1}: no capture")
+        l2 = {"graphed vs eager 1": rel_l2(g, e1),
+              "graphed vs eager 2": rel_l2(g, e2),
+              "eager 1 vs eager 2": rel_l2(e1, e2)}
+        diff = {k: float((a - b).abs().max()) for k, (a, b) in zip(
+            l2, ((g, e1), (g, e2), (e1, e2)))}
+        worst = max(worst, max(l2.values()))
+        print(f"[graph] screen gradient loop, round {i + 1} of {rounds}: "
+              f"captures {graphs.CAPTURES['forward'] - before['forward']}; "
+              f"relative L2 {l2}; max |diff| {diff}", flush=True)
+        if max(l2.values()) > GRAPH_L2_MAX or not all(
+                bool(torch.isfinite(x).all()) for x in (g, e1, e2)):
+            failed.append(i + 1)
+            where = os.path.join(OUT_DIR, f"screen_gradient_round{i + 1}.pt")
+            os.makedirs(os.path.dirname(where), exist_ok=True)
+            torch.save({"graphed": g.cpu(), "eager": [e1.cpu(), e2.cpu()],
+                        "samples": [{k: v.cpu() for k, v in x.items()}
+                                    for x in samples]}, where)
+            pix = torch.nonzero((e1 - e2).abs().amax(dim=(2, 3))
+                                > 1e-3).tolist()
+            print(f"[graph] screen gradient loop, round {i + 1}: pixels "
+                  f"where the eager runs differ by > 1e-3: {pix[:10]}; "
+                  f"their primary-edge samples: "
+                  f"{_sample_differences(samples[0], samples[1])}; saved "
+                  f"to {where}", flush=True)
+    # One more eager run with every uninitialised allocation NaN-filled
+    # (torch.empty and its kin; deterministic algorithms, warnings only):
+    # a read of memory the path never wrote shows as a NaN or a change.
+    # An op with a deterministic variant that rounds differently would
+    # show too, where its rounding changes a discrete decision.
+    import torch.utils.deterministic as det
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = True
+    filled_samples = []
+    real, rec = _recording_edge_samples(filled_samples)
+    edge_mod._sample_primary_edges = rec
+    try:
+        with graphs.disable(), torch.no_grad():
+            filled = fn(scene, SEED)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        det.fill_uninitialized_memory = saved[2]
+        edge_mod._sample_primary_edges = real
+    fill_l2 = rel_l2(filled, e2)
+    print(f"[graph] screen gradient, an eager run under deterministic "
+          f"algorithms with uninitialised memory NaN-filled: finite "
+          f"{bool(torch.isfinite(filled).all())}, relative L2 against the "
+          f"last eager run {fill_l2:.3e} (gate {GRAPH_L2_MAX})", flush=True)
+    if fill_l2 > GRAPH_L2_MAX:
+        print(f"[graph] its primary-edge samples against the last eager "
+              f"run's: {_sample_differences(filled_samples[0], samples[1])}",
+              flush=True)
+    scans = scan_determinism(scene.camera.device)
+    print(f"[graph] screen gradient loop: {rounds} rounds, worst relative "
+          f"L2 {worst:.3e} (gate {GRAPH_L2_MAX}), failed rounds {failed}; "
+          f"{smi_line}", flush=True)
+    _check(not failed, f"the screen gradient's loop failed rounds {failed}")
+    _check(bool(torch.isfinite(filled).all()) and fill_l2 <= GRAPH_L2_MAX,
+           "the screen gradient reads uninitialised memory or depends on "
+           "a nondeterministic rounding")
+    return {"rounds": rounds, "worst_rel_l2": worst, "filled_rel_l2": fill_l2,
+            "scans": scans}
+
+
+SCAN_RUNS = 100  # scans of one sampling table in scan_determinism
+SCAN_LEN = 1 << 17  # entries of that table: many of CUB's scan tiles
+
+
+def scan_determinism(dev):
+    """One one-dimensional float sampling table (SCAN_LEN entries, a third
+    zero, made from SEED) scanned SCAN_RUNS times by torch.cumsum and by
+    the port's vecmath.cumsum: how many different results each gave.
+    Gate: the port's, one.  Returns the counts."""
+    rng = np.random.default_rng(SEED)
+    w = rng.exponential(1.0, SCAN_LEN) * (rng.uniform(size=SCAN_LEN) > 1 / 3)
+    pmf = torch.as_tensor(w / w.sum(), dtype=torch.float32, device=dev)
+    counts = {}
+    for name, scan in (("torch.cumsum", lambda x: torch.cumsum(x, dim=0)),
+                       ("vecmath.cumsum", lambda x: vm.cumsum(x, dim=0))):
+        runs = torch.stack([scan(pmf) for _ in range(SCAN_RUNS)])
+        counts[name] = int(torch.unique(runs, dim=0).shape[0])
+    print(f"[graph] a {SCAN_LEN}-entry float32 sampling table scanned "
+          f"{SCAN_RUNS} times: distinct results {counts}", flush=True)
+    _check(counts["vecmath.cumsum"] == 1,
+           f"the port's scan gave {counts['vecmath.cumsum']} results")
+    return counts
 
 
 def graph_batches(path, tag="graph", cap=None):
@@ -2929,6 +3193,9 @@ def phase_graph(scene, opts, smi_line):
                                  rerenders=name == "render_image_grad",
                                  host=name == "screen_gradient")
         lap(f"graph: {name}")
+    rows["screen_gradient"]["loop"] = screen_gradient_loop(
+        paths["screen_gradient"], SCREEN_ROUNDS, smi_line)
+    lap(f"graph: the screen gradient's loop, {SCREEN_ROUNDS} rounds")
 
     # The device-bound contrast: 1024x1024 x 4 spp.
     (res, spp) = GRAPH_BIG
@@ -2989,7 +3256,7 @@ def second_order(fn, scene):
             x.requires_grad_(False)
 
 
-def phase_second_order(scene, opts, smi_line):
+def phase_second_order(scene, opts, smi_line, sharded=None):
     """The slice's second derivative (256x256 x 4 spp) through rtt.render
     and rtt.render_image: the route on the graph cache (the forward
     replays its graph; the backward that records and the continuous
@@ -2997,13 +3264,16 @@ def phase_second_order(scene, opts, smi_line):
     ["create_graph"]) against graphs.disable(), relative L2 <= 1e-4 per
     leaf, printed beside eager against eager; the wall of each (the
     graphed one after the call that captures its forward); the launches
-    of the phase."""
+    of the phase.  sharded: label -> sharded_second_order's rows
+    ([sharded]'s gloo ranks and one-rank NCCL group), each held against
+    the one-process eager second derivative (check_sharded_second_order).
+    """
     routes = {"render": lambda s: rtt.render(s, opts, seed=SEED),
               "render_image": lambda s: rtt.render_image(s, opts, seed=SEED)}
     graphs.clear()
     torch.cuda.synchronize()
     ic.reset_launch_counts()
-    rows = {}
+    rows, eager_h = {}, {}
     for name, fn in routes.items():
         eager0 = graphs.EAGER["create_graph"]
         run = lambda: second_order(fn, scene)
@@ -3018,6 +3288,7 @@ def phase_second_order(scene, opts, smi_line):
         l2 = [rel_l2(a, b) for a, b in zip(first, eager)]
         l2_ee = [rel_l2(a, b) for a, b in zip(again, eager)]
         finite = all(bool(torch.isfinite(x).all()) for x in first + eager)
+        eager_h[f"{name}_sharded"] = eager
         rows[name] = {"graphed_ms": graphed_ms, "eager_ms": eager_ms,
                       "rel_l2": dict(zip(GRAD_LEAVES, l2)),
                       "rel_l2_eager_vs_eager": dict(zip(GRAD_LEAVES, l2_ee)),
@@ -3040,7 +3311,52 @@ def phase_second_order(scene, opts, smi_line):
            f"[second_order]: a kernel did not launch: {launches}")
     graphs.clear()
     torch.cuda.empty_cache()
-    return {"routes": rows, "launches": launches}
+    out = {"routes": rows, "launches": launches}
+    if sharded:
+        out["sharded"] = check_sharded_second_order(sharded, eager_h,
+                                                    smi_line)
+    return out
+
+
+def check_sharded_second_order(runs, refs, smi_line, tag="second_order"):
+    """Each sharded second derivative (runs: label -> entry ->
+    sharded_second_order row) against one process's eager one (refs:
+    entry -> the leaves' second derivatives): finite, relative L2 <=
+    SECOND_ORDER_L2_MAX per leaf, the labels that are ranks of one group
+    ("... rank r of n") equal, both kernels launched in each first call;
+    its wall printed.  Returns label -> entry -> row without "h"."""
+    out = {}
+    for label, entries in runs.items():
+        out[label] = {}
+        for name, row in entries.items():
+            l2 = [rel_l2(a, b.cpu()) for a, b in zip(row["h"], refs[name])]
+            finite = all(bool(torch.isfinite(x).all()) for x in row["h"])
+            print(f"[{tag}] {name}, {label}: relative L2 against one "
+                  f"process per leaf {dict(zip(GRAD_LEAVES, l2))} (gate "
+                  f"{SECOND_ORDER_L2_MAX}); launches of its first call "
+                  f"{row['launches']}; wall of a later call "
+                  f"{row['ms']:.3f} ms; {smi_line}", flush=True)
+            _check(finite, f"{name}, {label}: non-finite second derivative")
+            _check(max(l2) <= SECOND_ORDER_L2_MAX,
+                   f"{name}, {label}: off one process by {l2}")
+            _check(all(v > 0 for v in row["launches"].values()),
+                   f"{name}, {label}: a kernel did not launch: "
+                   f"{row['launches']}")
+            out[label][name] = {"rel_l2": dict(zip(GRAD_LEAVES, l2)),
+                                "launches": row["launches"],
+                                "ms": row["ms"]}
+    groups = {}
+    for label, entries in runs.items():
+        if " rank " in label:
+            groups.setdefault(label.split(" rank ")[0], []).append(entries)
+    for group, ranks in groups.items():
+        for name in ranks[0]:
+            _check(all(torch.equal(a, b) for rk in ranks
+                       for a, b in zip(rk[name]["h"], ranks[0][name]["h"])),
+                   f"{name}: the {group} ranks' second derivatives differ")
+        print(f"[{tag}] {group}: every rank's second derivatives equal",
+              flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -3394,6 +3710,16 @@ def phase_cards(world, smi_lines):
             scene, rtt.RenderOptions(num_samples=spp, max_bounces=1)))
         del scene
         lap(f"cards: one process {res[0]}x{res[1]} x {spp} spp")
+    scene = make_slice_scene(res=SLICE_CELL[0], device=dev)
+    so_opts = rtt.RenderOptions(num_samples=SLICE_CELL[1], max_bounces=1)
+    with graphs.disable():
+        so_refs = {
+            "render_sharded": second_order(
+                lambda s: rtt.render(s, so_opts, seed=SEED), scene),
+            "render_image_sharded": second_order(
+                lambda s: rtt.render_image(s, so_opts, seed=SEED), scene)}
+    del scene
+    lap("cards: one process, second derivatives")
     torch.cuda.empty_cache()
 
     ranks = spawn_ranks(world, [f"cuda:{r}" for r in range(world)],
@@ -3425,7 +3751,8 @@ def phase_cards(world, smi_lines):
               f"{ref['peak_mib']}, per rank {row['peak_mib_per_rank']}",
               flush=True)
     rows.append(check_mixed_routes(
-        [r_[-1] for r_ in ranks], refs[CARDS_CELLS.index(SLICE_CELL)]))
+        [r_[-2] for r_ in ranks], refs[CARDS_CELLS.index(SLICE_CELL)]))
+    rows.append(check_mixed_second_order([r_[-1] for r_ in ranks], so_refs))
     for line in smi_lines:
         print(f"[cards] {line}", flush=True)
     return rows
@@ -3441,9 +3768,7 @@ def check_mixed_routes(ranks, ref):
     routes = []
     for call in range(MIXED_CALLS):
         got = [out[call] for out in ranks]
-        # each rank's calls since its cache was emptied
-        since = [call if call <= r else call - r - 1
-                 for r in range(len(ranks))]
+        since = _mixed_since(call, len(ranks))
         routes.append([("eager", "capture", "replay")[min(n, 2)]
                        for n in since])
         want = [both if n == 1 else none for n in since]
@@ -3462,6 +3787,52 @@ def check_mixed_routes(ranks, ref):
                    for a, b in zip(out["grads"], got[0]["grads"])),
                f"mixed routes, call {call + 1}: the ranks' gradients differ")
     return {"cell": "mixed routes", "routes": routes}
+
+
+def _mixed_since(call, world):
+    """Each rank's calls since its graph cache was emptied (mixed_routes:
+    rank r empties it before call r + 1)."""
+    return [call if call <= r else call - r - 1 for r in range(world)]
+
+
+def check_mixed_second_order(ranks, refs):
+    """mixed_second_order's rows of each rank against one process's
+    second derivatives (refs: entry -> leaves' second derivatives, eager):
+    at every call each rank's forwards took the route its emptied cache
+    gives (two forward captures at a key's second call; the backwards,
+    which record, run eagerly and capture nothing), the ranks' second
+    derivatives are equal, finite and each within SECOND_ORDER_L2_MAX
+    relative L2 of refs.  Returns the row for the JSON line."""
+    routes = []
+    for call in range(MIXED_CALLS):
+        got = [out[call] for out in ranks]
+        since = _mixed_since(call, len(ranks))
+        routes.append([("eager", "capture", "replay")[min(n, 2)]
+                       for n in since])
+        want = [{"forward": 2 if n == 1 else 0, "backward": 0}
+                for n in since]
+        l2 = max(rel_l2(a, b.cpu()) for out in got
+                 for name in SHARDED_SECOND_ORDER
+                 for a, b in zip(out["h"][name], refs[name]))
+        print(f"[cards] mixed routes, second derivatives, call {call + 1}: "
+              f"forward routes by rank {routes[-1]}, captures "
+              f"{[out['captures'] for out in got]}; max relative L2 "
+              f"against one process {l2:.3e} (gate {SECOND_ORDER_L2_MAX})",
+              flush=True)
+        _check([out["captures"] for out in got] == want,
+               f"mixed second derivatives, call {call + 1}: captures "
+               f"{[out['captures'] for out in got]}, want {want}")
+        _check(all(bool(torch.isfinite(x).all()) for out in got
+                   for name in SHARDED_SECOND_ORDER for x in out["h"][name]),
+               f"mixed second derivatives, call {call + 1}: non-finite")
+        _check(l2 <= SECOND_ORDER_L2_MAX, f"mixed second derivatives, call "
+               f"{call + 1}: relative L2 {l2}")
+        _check(all(torch.equal(a, b) for out in got
+                   for name in SHARDED_SECOND_ORDER
+                   for a, b in zip(out["h"][name], got[0]["h"][name])),
+               f"mixed second derivatives, call {call + 1}: the ranks' "
+               "second derivatives differ")
+    return {"cell": "mixed routes, second derivatives", "routes": routes}
 
 
 def cards_main(world):
@@ -3545,7 +3916,8 @@ def main():
     lap("sharded")
     graph_row = phase_graph(scene, opts, smi_line)
     lap("graph")
-    so_row = phase_second_order(scene, opts, smi_line)
+    so_row = phase_second_order(scene, opts, smi_line,
+                                shard_row.pop("second_order"))
     lap("second_order")
     tut_rows = phase_tutorials(smi_line)
     lap("tutorials")
@@ -3631,7 +4003,11 @@ def main():
         kernels[-1]["second_order"] = {
             "launches": so_row["launches"][kind],
             **{name: {k: row[k] for k in ("graphed_ms", "eager_ms")}
-               for name, row in so_row["routes"].items()}}
+               for name, row in so_row["routes"].items()},
+            "sharded": {label: {name: {"launches": r["launches"][kind],
+                                       "ms": r["ms"]}
+                                for name, r in entries.items()}
+                        for label, entries in so_row["sharded"].items()}}
         kernels[-1]["tutorials"] = {
             name: {"launches": row["launches"][kind],
                    "step_ms": row["step_ms"],
@@ -3657,6 +4033,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--screen-rounds"] and len(sys.argv) == 3:
+        SCREEN_ROUNDS = int(sys.argv[2])
+        sys.exit(main())
     if sys.argv[1:] == ["--memory"]:
         sys.exit(memory_main())
     if sys.argv[1:] == ["--graph-memory"]:

@@ -38,8 +38,11 @@ Second derivatives: `torch.autograd.grad(..., create_graph=True)` through
 reverse-over-reverse does (the backward is differentiated through the
 saved scene tensors and the incoming gradient; the image that the
 recorded gradient depends on is differentiated continuously, as JAX
-differentiates a custom_vjp's forward).  Under a pixel sharding over a
-process group they are not supported yet and raise NotImplementedError.
+differentiates a custom_vjp's forward), with or without a pixel
+sharding over a process group (the ranks' collectives are differentiable,
+core/shardutil.py): every rank holds the one-process second derivative.
+`TorchRenderer` (torch_bridge.py) keeps the JAX package's bridge class:
+render(scene_template, *params) renders param_setter(template, *params).
 
 The pyredner-style front end sits on top: `redner_tpu_torch.frontend`
 (`import redner_tpu_torch.frontend as pyredner`: redner_torch's classes,
@@ -100,6 +103,7 @@ from redner_tpu_torch.serialize import (load_scene,  # noqa: E402
 from redner_tpu_torch.texture import Texture, make_texture  # noqa: E402
 from redner_tpu_torch.timing import (get_print_timing,  # noqa: E402
                                      profile_trace, set_print_timing, timed)
+from redner_tpu_torch.torch_bridge import TorchRenderer  # noqa: E402
 from redner_tpu_torch.utils import (generate_quad_light,  # noqa: E402
                                     generate_sphere, linear_to_srgb,
                                     sh_basis, sh_eval, sh_reconstruct,

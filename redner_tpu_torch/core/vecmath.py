@@ -184,3 +184,35 @@ def to_world(frame_x, frame_y, frame_n, v):
 def searchsorted_right(sorted_x, q):
     """Per-row count of elements <= q (== searchsorted side="right")."""
     return torch.sum((sorted_x <= q[..., None]).to(torch.int64), dim=-1)
+
+
+# Fixed-point bits of exact_cumsum: every term and every prefix sum is at
+# most 2^62 in magnitude, inside int64.
+_SCAN_BITS = 62
+
+
+def exact_cumsum(x, dim=-1):
+    """The prefix sums of x along dim, added exactly: the terms as
+    _SCAN_BITS-bit fixed point relative to the sum of their magnitudes
+    (int64, whose addition is associative), each sum rounded to x's dtype
+    once.  So the result does not depend on the order of the additions.
+    No gradient (sampling tables)."""
+    x64 = x.detach().to(torch.float64)
+    unit = torch.sum(torch.abs(x64), dim=dim, keepdim=True) * 2.0 ** (
+        -_SCAN_BITS)  # the value of one fixed-point step
+    unit = torch.where(unit > 0, unit, torch.ones_like(unit))
+    q = torch.round(x64 / unit).to(torch.int64)
+    return (torch.cumsum(q, dim=dim).to(torch.float64) * unit).to(x.dtype)
+
+
+def cumsum(x, dim=-1):
+    """torch.cumsum of a sampling table, the same on every run.  A card
+    scans a one-dimensional float tensor with CUB's decoupled look-back,
+    whose order of additions depends on timing: the same inputs can give
+    CDFs that differ in the last bit, which moves a sample that lies on a
+    boundary to the next entry (a different pick; PERF.md).  On a
+    card float tables go through exact_cumsum; elsewhere, and for
+    integers, torch.cumsum (the CPU adds in order)."""
+    if x.is_cuda and x.is_floating_point():
+        return exact_cumsum(x, dim)
+    return torch.cumsum(x, dim=dim)

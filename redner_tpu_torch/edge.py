@@ -426,7 +426,7 @@ def _sample_primary_edges(scene, flatten_scene_fn, render_sample_fn, options,
         total = torch.sum(weight_len)
         any_edges = total > 0
         pmf = weight_len / vm.maximum(total, 1e-20)
-        cdf = torch.cumsum(pmf, dim=0) - pmf
+        cdf = vm.cumsum(pmf, dim=0) - pmf
 
         u = sampler_mod.draw(options.sampler_type, edge_seed, 0,
                              torch.arange(N, device=dev), 0, 2)
@@ -590,7 +590,13 @@ def firefly_scale(z, clamp_k, wins_cap: float = 20.0, lane_sharding=None):
     """Per-lane down-scaling factors min(1, tau/z) for the firefly clamp:
     tau = clamp_k x a two-pass winsorized mean of z over the lanes with
     z > 0 (the lanes whose offset pair straddles).  lane_sharding: z holds
-    this rank's lanes, and the sums run over every rank's."""
+    this rank's lanes, and the sums run over every rank's
+    (shardutil.all_reduce_sum, whose backward sums the ranks'
+    cotangents), so tau's derivative in z is the one-process one on every
+    rank.  In secondary_edge_surrogate z is made under no_grad from
+    quantities the JAX package stops gradients of (w and dist,
+    redner_tpu/edge.py:1262, :1360-1361), so there no derivative of tau
+    reaches a leaf."""
     count_sum = all_reduce_sum(
         torch.stack([torch.sum((z > 0).to(z.dtype)), torch.sum(z)]),
         lane_sharding)

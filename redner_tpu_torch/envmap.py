@@ -90,7 +90,7 @@ def pack_envmap(env: EnvironmentMap) -> PackedEnvmap:
         y_weight = torch.sin(
             PI * (torch.arange(h, dtype=texels.dtype, device=texels.device)
                   + 0.5) / float(h))
-        cdf_ys_raw = torch.cumsum(cdf_xs_raw[:, -1] * y_weight, dim=0)
+        cdf_ys_raw = vm.cumsum(cdf_xs_raw[:, -1] * y_weight, dim=0)
         pdf_norm = (h * w) / (cdf_ys_raw[-1] * (2.0 * PI * PI))
         cdf_xs = (cdf_xs_raw - cdf_xs_raw[:, :1]) / torch.clamp(
             cdf_xs_raw[:, -1:], min=1e-8)

@@ -79,8 +79,10 @@ made from measured bytes and the card's memory before anything is
 captured, never by catching an out-of-memory error.  Before every eager
 run (a key's first call, every call of a key that runs eagerly, a
 backward that records) room is made for the run's need as measured at
-its last run; a run not measured yet releases every other graph on the
-card first.  A program keeps its measurements when its graphs are
+its last run, the allocator's unused blocks counted as free (the cache
+is emptied, which waits for the card, only when they do not cover it); a
+run not measured yet releases every other graph on the card first, after
+an empty_cache.  A program keeps its measurements when its graphs are
 released, so it captures again without an eager run.  A program that a
 pending autograd ctx holds stays valid: a released graph is captured
 again at its next call.  CACHE_SIZE bounds the number of keys besides.
@@ -142,29 +144,57 @@ def _module_constants():
         if k.isupper() and isinstance(v, (bool, int, float, tuple)))
 
 
-def _device_free(device):
-    """The card's free bytes once the allocator's unused blocks are
-    returned."""
+def _unused(device):
+    """The allocator's unused bytes on the card that an allocation can
+    have: reserved but not allocated, less the free parts of segments
+    that are partly in use (they cannot go back to the card) and the
+    bytes the cached graphs' pools keep (their free blocks serve only
+    their graphs).  An allocation that finds no room returns the rest to
+    the card and tries again."""
+    split = torch.cuda.memory_stats(device).get(
+        "inactive_split_bytes.all.current", 0)
+    pooled = sum(p.bytes for p in _cache.values() if p.device == device)
+    return max(torch.cuda.memory_reserved(device)
+               - torch.cuda.memory_allocated(device) - split - pooled, 0)
+
+
+def _device_free(device, need=None):
+    """The bytes a run on the card can allocate.  With a measured need:
+    the card's free memory plus the allocator's unused blocks (_unused),
+    when those cover it; else, and when need is None (not measured yet,
+    or a capture, whose private pool comes from the card's free memory),
+    the card's free memory after the unused blocks are returned
+    (empty_cache, which waits for the card)."""
+    free = torch.cuda.mem_get_info(device)[0]
+    if need is not None:
+        free += _unused(device)
+        if free >= need:
+            return free
     torch.cuda.empty_cache()
     return torch.cuda.mem_get_info(device)[0]
 
 
 def _measured(body, device):
     """body() run eagerly -> (its result, the reserved bytes the run
-    added: what it needed beyond the blocks in use before it, the
-    allocator's unused blocks having been returned by _device_free).
-    The caller's peak-memory statistics are left as they are."""
+    added: what it needed beyond the blocks in use or cached before it;
+    the first run of a kind follows an empty_cache (_device_free), so its
+    measure is the whole need, and later runs keep the largest).  The
+    caller's peak-memory statistics are left as they are."""
     before = torch.cuda.memory_reserved(device)
     out = body()
     return out, torch.cuda.memory_reserved(device) - before
 
 
-def _make_room(need, keep, spare=()):
+def _make_room(need, keep, spare=(), eager=False):
     """Releases graphs on keep's card until its free memory covers `need`
     bytes: the other programs' (least recently used first), then keep's
     own graphs of the kinds in `spare`; every one of them when need is
-    None (not measured yet).  Whether the free memory covers need."""
-    free = _device_free(keep.device)
+    None (not measured yet).  For an eager run the allocator's unused
+    blocks count as free, so the cache is emptied only when they do not
+    cover need (_device_free); a capture's pool needs the card's free
+    memory.  Whether the free memory covers need."""
+    ask = need if eager else None
+    free = _device_free(keep.device, ask)
     held = [(p, k) for p in _cache.values()
             if p is not keep and p.device == keep.device for k in KINDS]
     for prog, kind in held + [(keep, k) for k in spare]:
@@ -173,7 +203,7 @@ def _make_room(need, keep, spare=()):
         if prog.graphs[kind] is not None:
             prog.graphs[kind] = None
             gc.collect()  # the pool goes with the last reference
-            free = _device_free(keep.device)
+            free = _device_free(keep.device, ask)
     return need is not None and free >= need
 
 
@@ -253,8 +283,8 @@ class Program:
         """body() run eagerly, after room is made on the card for the need
         its kind measured at its last run (the key's own graphs of other
         kinds released last); the need of this run kept."""
-        _make_room(self.needs.get(kind), self, [k for k in KINDS
-                                                if k != kind])
+        _make_room(self.needs.get(kind), self,
+                   [k for k in KINDS if k != kind], eager=True)
         out, need = _measured(body, self.device)
         self.needs[kind] = max(need, self.needs.get(kind, 0))
         return out

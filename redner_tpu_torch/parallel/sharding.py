@@ -18,8 +18,14 @@ torch.distributed process group, NCCL between cards, gloo on the CPU):
     (core/shardutil.py).
 
 Every rank ends with the same image and the same gradients, which equal the
-one-process render's.  With torch.distributed not initialised, make_mesh()
-is a world of one that needs no collective.
+one-process render's.  The collectives are differentiable, so second
+derivatives (torch.autograd.grad(..., create_graph=True), then a second
+grad) through render_sharded and render_image_sharded give every rank the
+one-process second derivative, as jax.grad(jax.grad(...)) differentiates
+through GSPMD's collectives; on cards the two backwards run eagerly,
+issuing the same collectives on every rank whatever route each rank's
+graph cache took for the forward.  With torch.distributed not
+initialised, make_mesh() is a world of one that needs no collective.
 
 On cards over an NCCL group (or with no group) the entry points replay
 cached CUDA graphs with the collectives inside them (graphs.py), as the

@@ -51,8 +51,13 @@ render, such as a first-order loss.backward() after the recording one,
 stays edge-sampled.  A single pass that differentiates a recorded
 gradient and the image's own loss together gets the continuous backward
 for both.  On a card these backwards run eagerly.  Under a pixel
-sharding over a process group they raise NotImplementedError (the
-all-reduce of the gradients is not differentiable).
+sharding over a process group the collectives are differentiable
+(core/shardutil.py): the recording backward wraps its leaves so that the
+second pass sums their cotangents over the ranks, its image gather's
+backward slices and gathers again, and its gradients' all-reduce passes
+the cotangent through; every rank then holds the one-process second
+derivative.  Which backward is the continuous one is decided from the
+autograd graph, which every rank builds alike, so the ranks decide alike.
 
 `graphed_render_image` is `render_image` under autograd on a card (JAX:
 jax.grad of `_render_image_jitted`): the same two graphs, its backward
@@ -66,7 +71,7 @@ import torch
 
 from redner_tpu_torch import graphs
 from redner_tpu_torch.core.shardutil import (all_reduce_grads,
-                                             no_second_order, sharded)
+                                             reduce_leaf_grads, sharded)
 from redner_tpu_torch.edge import primary_edge_gradients
 from redner_tpu_torch.render import (RenderOptions, _render_image_impl,
                                      graph_forward, render_sample)
@@ -116,10 +121,16 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
     # each scene field its own gradient, as the detached copies do.
     create_graph = torch.is_grad_enabled()
     if create_graph:
-        if sharded(sharding):
-            no_second_order("the gradients' all-reduce")
         leaves = [x.view_as(x) if n else x.detach()
                   for x, n in zip(tensors, needs)]
+        if sharded(sharding):
+            # The re-render consumes the leaves on this rank's lanes, so
+            # the second pass hands them rank-partial cotangents: summed
+            # over the ranks on their way to the saved tensors.
+            wrapped = iter(reduce_leaf_grads(
+                [x for x, n in zip(leaves, needs) if n], sharding))
+            leaves = [next(wrapped) if n else x
+                      for x, n in zip(leaves, needs)]
     else:
         ct_img = ct_img.detach()
         leaves = [x.detach().requires_grad_(n)
@@ -144,14 +155,22 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
                 ct_img, num_edge_samples, engine=engine,
                 lane_sharding=sharding)
         # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
-        # Under a sharding each term is this rank's part of the sum.
+        # Under a sharding img is the gathered (replicated) image and ct_img
+        # its whole cotangent, so the first term's gradient reaches this
+        # rank's lanes through the gather's backward (the slice of its
+        # lanes); surr is this rank's part.  Both give the leaves
+        # rank-partial gradients, and under create_graph both give ct_img
+        # its whole (replicated) cotangent: the slice's backward gathers
+        # the ranks' parts.
         total = torch.sum(img * ct_img) + surr
         wrt = [x for x, n in zip(leaves, needs) if n]
         grads = torch.autograd.grad(total, wrt, allow_unused=True,
                                     create_graph=create_graph)
     if sharding is not None:
         # Zeros for unused leaves: every rank then reduces the same
-        # shapes, whichever leaves its own lanes reach.
+        # shapes, whichever leaves its own lanes reach.  The sum is
+        # differentiable (its backward the identity: a loss of the
+        # gradients is the same on every rank).
         grads = all_reduce_grads(
             [torch.zeros_like(x) if g is None else g
              for x, g in zip(wrt, grads)], sharding)

@@ -252,6 +252,7 @@ def test_import_leaves_jax_out():
         "import redner_tpu_torch.convert, redner_tpu_torch.accel\n"
         "import redner_tpu_torch.io, redner_tpu_torch.meshops\n"
         "import redner_tpu_torch.serialize, redner_tpu_torch.geometry_images\n"
+        "import redner_tpu_torch.torch_bridge\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'redner_tpu', 'redner_torch')]\n"
         "print(bad)\n"
@@ -263,6 +264,28 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_exact_cumsum_does_not_depend_on_the_order():
+    """vecmath.exact_cumsum (the card's scan of sampling tables) adds in
+    fixed point: every prefix sum within an ulp of the float64 scan, the
+    total the same whichever order the terms come in, zeros and signs
+    kept; vecmath.cumsum on the CPU is torch.cumsum itself."""
+    from redner_tpu_torch.core import vecmath as vm
+
+    rng = np.random.default_rng(1)
+    w = rng.exponential(1.0, 50000) * (rng.uniform(size=50000) > 0.3)
+    x = torch.as_tensor(w / w.sum(), dtype=torch.float32)
+    got = vm.exact_cumsum(x, dim=0)
+    torch.testing.assert_close(got, torch.cumsum(x.double(), 0).float(),
+                               rtol=1.2e-7, atol=0)
+    perm = torch.as_tensor(rng.permutation(50000))
+    assert torch.equal(vm.exact_cumsum(x[perm], dim=0)[-1], got[-1])
+    assert torch.equal(vm.exact_cumsum(x.flip(0), dim=0)[-1], got[-1])
+    assert torch.equal(vm.exact_cumsum(torch.zeros(4), 0), torch.zeros(4))
+    assert torch.equal(vm.exact_cumsum(torch.tensor([[1.0, -2.0, 3.0]]), -1),
+                       torch.tensor([[1.0, -1.0, 2.0]]))
+    assert torch.equal(vm.cumsum(x, dim=0), torch.cumsum(x, dim=0))
 
 
 def test_entry_point_without_device_needs_cuda(monkeypatch):

@@ -924,3 +924,48 @@ def test_graphed_first_order_after_a_recording_backward(dev):
     finally:
         v.requires_grad_(False)
         v.grad = None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["render_sharded", "render_image_sharded"])
+def test_one_rank_nccl_second_derivative_matches_one_process(dev, tmp_path,
+                                                             name):
+    """The second derivative through a sharded entry point over a one-rank
+    NCCL group (its collectives differentiated in both passes) equals one
+    process's eager one within relative L2 1e-4."""
+    import torch.distributed as dist
+
+    from redner_tpu_torch.parallel import sharding
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    one = rtt.render if name == "render_sharded" else rtt.render_image
+    with graphs.disable():
+        ref = _second_order(lambda s, sd: one(s, opts, seed=sd),
+                            _scene(dev, res=(32, 32)), 5)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(dev)
+        fn = getattr(sharding, name)
+        got = _second_order(lambda s, sd: fn(s, opts, seed=sd, mesh=mesh),
+                            _scene(dev, res=(32, 32)), 5)
+    finally:
+        dist.destroy_process_group()
+        graphs.clear()
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all() and float(r.norm()) > 0
+        assert float((g - r).norm() / r.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_sampling_table_scan_is_the_same_every_run(dev):
+    """vecmath.cumsum on the card: 50 scans of a 2^17-entry table give one
+    result, within an ulp of the float64 scan."""
+    from redner_tpu_torch.core import vecmath as vm
+
+    w = np.random.default_rng(2).exponential(1.0, 1 << 17)
+    pmf = torch.as_tensor(w / w.sum(), dtype=torch.float32, device=dev)
+    runs = torch.stack([vm.cumsum(pmf, dim=0) for _ in range(50)])
+    assert torch.unique(runs, dim=0).shape[0] == 1
+    want = torch.cumsum(pmf.double(), dim=0).float()
+    torch.testing.assert_close(runs[0], want, rtol=1.2e-7, atol=0)

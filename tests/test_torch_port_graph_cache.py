@@ -61,7 +61,8 @@ class FakeCard:
         monkeypatch.setattr(graphs, "_Graph", Graph)
         monkeypatch.setattr(graphs, "_measured", lambda body, device: (
             run(body, need(body)), need(body)))
-        monkeypatch.setattr(graphs, "_device_free", lambda device: card.free())
+        monkeypatch.setattr(graphs, "_device_free",
+                            lambda device, need=None: card.free())
 
     def free(self):
         return TOTAL - sum(g.bytes for g in self.live)
@@ -256,3 +257,99 @@ def test_every_call_runs_the_body_once(card, backward):
     once()
     assert prog.eager
     once()
+
+
+class StubMemory:
+    """torch.cuda's memory readings of one card, in bytes: `free` on the
+    card, `reserved` by the allocator, `allocated` of it, `split` the free
+    parts of partly used segments; empty_cache() returns the other unused
+    bytes to the card and is counted in `flushes`."""
+
+    def __init__(self, monkeypatch, free, reserved, allocated, split):
+        self.free, self.reserved = free, reserved
+        self.allocated, self.split = allocated, split
+        self.flushes = 0
+        stub = self
+        for name, fn in (
+                ("mem_get_info", lambda device=None: (stub.free, 10 ** 6)),
+                ("memory_reserved", lambda device=None: stub.reserved),
+                ("memory_allocated", lambda device=None: stub.allocated),
+                ("memory_stats", lambda device=None: {
+                    "inactive_split_bytes.all.current": stub.split}),
+                ("empty_cache", stub.empty_cache)):
+            monkeypatch.setattr(torch.cuda, name, fn)
+
+    def empty_cache(self):
+        self.flushes += 1
+        back = self.reserved - self.allocated - self.split
+        self.free += back
+        self.reserved -= back
+
+
+@pytest.fixture
+def empty_cache_of_programs():
+    graphs.clear()
+    yield
+    graphs.clear()
+
+
+def test_eager_runs_count_the_allocators_unused_blocks(
+        monkeypatch, empty_cache_of_programs):
+    """Free for an eager run = the card's free bytes + the allocator's
+    unused ones (reserved - allocated - split): 10 + (50 - 20 - 5) = 35.
+    The cache is emptied only for a need they do not cover, or a need not
+    measured yet (a capture's pool takes the card's own free memory)."""
+    mem = StubMemory(monkeypatch, free=10, reserved=50, allocated=20,
+                     split=5)
+    assert graphs._device_free("cuda", need=35) == 35
+    assert mem.flushes == 0
+    assert graphs._device_free("cuda", need=36) == 35
+    assert mem.flushes == 1 and (mem.free, mem.reserved) == (35, 25)
+    mem.reserved += 25  # the next run left 25 unused bytes cached again
+    mem.free -= 25
+    assert graphs._device_free("cuda") == 35
+    assert mem.flushes == 2
+
+
+def test_unused_blocks_of_graph_pools_do_not_count(
+        monkeypatch, empty_cache_of_programs):
+    """A cached program's pool keeps its free blocks for its graphs: its
+    bytes come off the unused count."""
+    mem = StubMemory(monkeypatch, free=10, reserved=50, allocated=20,
+                     split=0)
+    prog, _ = _program(4)
+    prog.device = "cuda"  # the stubbed card's
+
+    class Held:
+        bytes = 18
+
+    prog.graphs["forward"] = Held()
+    assert graphs._unused("cuda") == 50 - 20 - 18
+    assert graphs._device_free("cuda", need=22) == 22
+    assert mem.flushes == 0
+    prog.graphs["forward"] = None
+    assert graphs._unused("cuda") == 30
+
+
+def test_only_a_first_eager_run_empties_the_cache(
+        monkeypatch, empty_cache_of_programs):
+    """Program.run_eagerly: the first run of a kind (need not measured)
+    empties the cache and measures 20 bytes; the next runs find them
+    among the unused blocks and leave the cache as it is.  A capture
+    still empties it first."""
+    mem = StubMemory(monkeypatch, free=30, reserved=0, allocated=0,
+                     split=0)
+    prog, _ = _program(4)
+
+    def body():  # a run that reserves 20 bytes and leaves them cached
+        if mem.reserved < 20:
+            mem.free -= 20 - mem.reserved
+            mem.reserved = 20
+        return 1
+
+    for _ in range(3):
+        assert prog.run_eagerly("create_graph", body) == 1
+    assert prog.needs["create_graph"] == 20
+    assert mem.flushes == 1
+    assert graphs._make_room(5, prog)  # as before a capture
+    assert mem.flushes == 2

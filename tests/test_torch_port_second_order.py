@@ -190,13 +190,17 @@ def gloo_world(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["render", "render_image"])
-def test_second_derivative_under_pixel_sharding_raises(gloo_world, name):
-    """A sharded gradient is all-reduced over the ranks, which is not
-    differentiable: create_graph raises NotImplementedError where a
-    first-order result would be silently wrong."""
+def test_second_derivative_under_a_one_rank_group(gloo_world, name):
+    """A pixel sharding over a process group of one rank runs every
+    collective of both passes (gloo) and gives the second derivative of
+    one process without a group (worlds of 2 and 3: the sharding tests)."""
+    want = port_h(getattr(rtt, name))
     scene = single_triangle(RES, DIFFUSE)
     v = scene.shapes[0].vertices.requires_grad_(True)
     img = getattr(rtt, name)(scene, _options(rtt), seed=0,
                              pixel_sharding=gloo_world)
-    with pytest.raises(NotImplementedError, match="pixel sharding"):
-        torch.autograd.grad(torch.sum(img ** 2), v, create_graph=True)
+    (g,) = torch.autograd.grad(torch.sum(img ** 2), v, create_graph=True)
+    assert g.requires_grad
+    (h,) = torch.autograd.grad(torch.sum(g), v)
+    np.testing.assert_allclose(h.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())

@@ -3,12 +3,18 @@ gloo ranks of this CPU host, against the one-process port on the single
 triangle scene (tests/test_sharding.py's checks): the image within atol
 1e-6, gradients within rtol 1e-4, in worlds of 2 and 3 (256 pixels do not
 divide over 3: the padding), every rank holding the one-process gradient,
-and the train step descending.
+and the train step descending.  Second derivatives through render_sharded
+and render_image_sharded (tests/test_torch_port_second_order.py's scene):
+render's against JAX's recorded values, both against the one-process port
+within 1e-5 relative, under a loss that couples pixels too, every rank
+equal and issuing the same collectives; and the firefly clamp's gradient
+over split lanes.
 
 Imports torch and the port only: the ranks are spawned processes, which
 import tests/torch_port_spawn.py.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,9 +25,13 @@ from redner_tpu_torch.parallel.sharding import (Mesh, make_mesh,
                                                 render_image_sharded,
                                                 render_sharded)
 from redner_tpu_torch.parallel.spawn import run_ranks
+from tests.test_torch_port_second_order import JAX_RENDER_H
+from tests.test_torch_port_second_order import _close as _jax_close
 from tests.torch_port_spawn import (FEW_EDGE_OPTIONS, RENDER_OPTIONS,
-                                    ad_gradient, edge_gradient,
-                                    launches_per_gradient, sharded_results,
+                                    SECOND_ORDER_CASES, ad_gradient,
+                                    edge_gradient, firefly_gradient,
+                                    launches_per_gradient,
+                                    second_derivative, sharded_results,
                                     single_triangle, train_losses)
 from tests.torch_port_util import two_torch_threads  # noqa: F401
 
@@ -43,12 +53,16 @@ def single():
         _, few_edge_grads = edge_gradient(
             scene, rtt.RenderOptions(**FEW_EDGE_OPTIONS), 1)
         losses, _ = train_losses(make_mesh("cpu"))
+        second_order = {case: second_derivative(*case)[0]
+                        for case in SECOND_ORDER_CASES}
+        firefly = firefly_gradient()
     finally:
         torch.set_num_threads(keep)
     return {"image": image, "edge_image": edge_image,
             "edge_grads": edge_grads, "ad_image": ad_image,
             "ad_grads": ad_grads, "few_edge_grads": few_edge_grads,
-            "losses": losses}
+            "losses": losses, "second_order": second_order,
+            "firefly": firefly}
 
 
 @pytest.fixture(scope="module")
@@ -141,6 +155,111 @@ def test_launches_per_rank(worlds):
     assert launches_per_gradient(make_mesh("cpu")) == (32, 16)
     for r in worlds[2]:
         assert r["launches"] == (28, 14)
+
+
+def _relative(got, ref, rtol=1e-5):
+    """Within rtol relative, elementwise and to rtol x the largest
+    entry."""
+    torch.testing.assert_close(got, ref, rtol=rtol,
+                               atol=rtol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_render_sharded_second_derivative_matches_jax(single, worlds,
+                                                      world):
+    """h = d/dv sum(d/dv sum(img^2)) through render_sharded (both edge
+    samplers) equals JAX's reverse over reverse, recorded in the
+    second-order test, at that file's tolerance."""
+    want = JAX_RENDER_H["both"]
+    for r in worlds[world]:
+        _jax_close(r["second_order"][("render", "square")][0].numpy(),
+                   np.asarray(want))
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_render_image_sharded_second_derivative_matches_one_process(
+        single, worlds, world):
+    """The same h through render_image_sharded equals the one-process
+    port's (which the second-order test holds against JAX live)."""
+    ref = single["second_order"][("render_image", "square")]
+    assert float(ref.abs().max()) > 0
+    for r in worlds[world]:
+        _relative(r["second_order"][("render_image", "square")][0], ref)
+
+
+@pytest.mark.parametrize("entry", ["render", "render_image"])
+@pytest.mark.parametrize("world", [2, 3])
+def test_pixel_coupling_second_derivative_matches_one_process(
+        single, worlds, world, entry):
+    """A loss that couples every pixel, sum(img)^2 + sum(img^2): a backward
+    that kept only this rank's lanes of the image's cotangent, or that
+    counted the ranks' sums `world` times, gives another h."""
+    ref = single["second_order"][(entry, "coupled")]
+    assert float(ref.abs().max()) > 0
+    assert not torch.allclose(ref, single["second_order"][(entry, "square")])
+    for r in worlds[world]:
+        _relative(r["second_order"][(entry, "coupled")][0], ref)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_every_rank_holds_the_same_second_derivative(worlds, world):
+    """Every rank ends with the same h and issued the same all-reduces, in
+    the same order, of the same shapes, in both passes."""
+    ranks = worlds[world]
+    for case in SECOND_ORDER_CASES:
+        h0, issued0 = ranks[0]["second_order"][case]
+        assert issued0, case
+        for r in ranks[1:]:
+            h, issued = r["second_order"][case]
+            assert torch.equal(h, h0), case
+            assert issued == issued0, case
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_second_derivative_with_an_empty_edge_block(single, worlds, world):
+    """FEW_EDGE_OPTIONS: in the world of 3 the last rank draws no
+    primary-edge sample, yet it joins both passes' collectives, and h
+    equals the one-process one."""
+    ref = single["second_order"][("few_edges", "square")]
+    for r in worlds[world]:
+        _relative(r["second_order"][("few_edges", "square")][0], ref)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_firefly_scale_gradient_over_split_lanes(single, worlds, world):
+    """The clamp's population scale tau sums over every rank's lanes, and
+    so does its derivative: the gradient of sum(scale * c) w.r.t. z,
+    assembled from the ranks' blocks, equals one process's on the whole
+    vector, where the clamp binds on some lanes."""
+    _, scale, ref = single["firefly"]
+    assert bool((scale < 1).any()) and bool((scale == 1).any())
+    got = torch.zeros_like(ref)
+    got_scale = torch.zeros_like(scale)
+    for r in worlds[world]:
+        lo, s, g = r["firefly"]
+        got[lo:lo + g.shape[0]] = g
+        got_scale[lo:lo + s.shape[0]] = s
+    _relative(got_scale, scale)
+    _relative(got, ref)
+
+
+def test_a_failed_collective_raises_with_its_number(monkeypatch):
+    """A collective that fails (a rank that issued another one times out
+    at the group's timeout) raises naming which all-reduce of this rank
+    it was; nothing retries it or runs one process instead."""
+    from redner_tpu_torch.core import shardutil
+
+    def timed_out(*args, **kwargs):
+        raise RuntimeError("Timed out waiting 300000ms")
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", timed_out)
+    before = shardutil.COLLECTIVES
+    with pytest.raises(RuntimeError, match=r"all-reduce \d+ of this rank "
+                       r"\(lane gather, shape \(4, 3\)\) failed"):
+        shardutil.gather_lanes(torch.ones(2, 3), 0, 4,
+                               Mesh(group=object(), rank=0, world=2,
+                                    device=torch.device("cpu")))
+    assert shardutil.COLLECTIVES == before + 1
 
 
 def test_world_of_one_without_a_process_group(single):

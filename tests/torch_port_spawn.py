@@ -7,10 +7,12 @@ in every child, so this module imports torch and the port only, never JAX.
 
 import importlib
 
+import numpy as np
 import torch
 
 import redner_tpu_torch as rtt
 from redner_tpu_torch import edge as tedge
+from redner_tpu_torch.core import shardutil
 from redner_tpu_torch.ops import intersect_cuda as ic
 from redner_tpu_torch.parallel.sharding import (make_mesh, make_train_step,
                                                 render_image_sharded,
@@ -136,10 +138,79 @@ def launches_per_gradient(mesh):
     return counts["closest_hit"], counts["any_hit"]
 
 
+# The second-order test's scene (tests/test_torch_port_second_order.py).
+SECOND_ORDER_RES = (8, 8)
+SECOND_ORDER_DIFFUSE = (0.5, 0.4, 0.3)
+# Losses of the image: one elementwise, one that couples every pixel (only
+# such a loss shows a backward that drops the other ranks' lanes).
+SECOND_ORDER_LOSSES = {
+    "square": lambda img: torch.sum(img ** 2),
+    "coupled": lambda img: torch.sum(img) ** 2 + torch.sum(img ** 2),
+}
+# (entry point, loss): few_edges is render with FEW_EDGE_OPTIONS.
+SECOND_ORDER_CASES = (("render", "square"), ("render", "coupled"),
+                      ("render_image", "square"),
+                      ("render_image", "coupled"), ("few_edges", "square"))
+
+
+def second_derivative(entry, loss, mesh=None):
+    """h = d/dv sum(d/dv loss(image)) w.r.t. the triangle's vertices (2 spp,
+    1 bounce, seed 0) through rtt.render or rtt.render_image, or their
+    sharded entry points over mesh -> (h, the (kind, shape) of every
+    all-reduce the two passes issued)."""
+    scene = single_triangle(SECOND_ORDER_RES, SECOND_ORDER_DIFFUSE)
+    v = scene.shapes[0].vertices.requires_grad_(True)
+    opts = rtt.RenderOptions(**(FEW_EDGE_OPTIONS if entry == "few_edges"
+                                else RENDER_OPTIONS))
+    if entry == "render_image":
+        fn = rtt.render_image if mesh is None else render_image_sharded
+    else:
+        fn = rtt.render if mesh is None else render_sharded
+    with shardutil.trace_collectives() as issued:
+        img = (fn(scene, opts, seed=0) if mesh is None
+               else fn(scene, opts, seed=0, mesh=mesh))
+        (g,) = torch.autograd.grad(SECOND_ORDER_LOSSES[loss](img), v,
+                                   create_graph=True)
+        (h,) = torch.autograd.grad(torch.sum(g), v)
+    return h, issued
+
+
+# The firefly clamp's population: 96 lanes, a third with no straddle
+# (z = 0), a spread of moderate values and a few spikes above
+# FIREFLY_K x the robust mean, where the clamp binds.
+FIREFLY_LANES = 96
+FIREFLY_K = 3.0
+
+
+def firefly_inputs():
+    """(z, c) of FIREFLY_LANES lanes, made from seed 0 with numpy."""
+    rng = np.random.default_rng(0)
+    z = rng.exponential(1.0, FIREFLY_LANES)
+    z[rng.permutation(FIREFLY_LANES)[:32]] = 0.0
+    z[[5, 40, 77]] = [30.0, 55.0, 12.0]
+    c = rng.uniform(-1.0, 1.0, FIREFLY_LANES)
+    return (torch.tensor(z, dtype=torch.float32),
+            torch.tensor(c, dtype=torch.float32))
+
+
+def firefly_gradient(mesh=None):
+    """d sum(firefly_scale(z) * c) / dz on this rank's block of the lanes
+    (all of them without a mesh) -> (start, scale, gradient)."""
+    z, c = firefly_inputs()
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    lo, hi = shardutil.lane_block(FIREFLY_LANES, rank, world)
+    zl = z[lo:hi].clone().requires_grad_(True)
+    scale = tedge.firefly_scale(zl, FIREFLY_K, lane_sharding=mesh)
+    (gz,) = torch.autograd.grad(torch.sum(scale * c[lo:hi]), zl)
+    return lo, scale.detach(), gz
+
+
 def sharded_results(res=(16, 16), train=True):
     """What one rank computes for the sharding tests: render_image_sharded,
     render_sharded's image and gradients (also with FEW_EDGE_OPTIONS), the
-    AD gradient of render_image_sharded and, with train, the train step's losses and the
+    AD gradient of render_image_sharded, the second derivatives of
+    SECOND_ORDER_CASES with the collectives they issued, the firefly
+    clamp's gradient and, with train, the train step's losses and the
     launches of one gradient."""
     # One intra-op thread: the ranks' sums then run in a fixed order.
     torch.set_num_threads(1)
@@ -153,6 +224,9 @@ def sharded_results(res=(16, 16), train=True):
     out["ad_image"], out["ad_grads"] = ad_gradient(scene, opts, 1, mesh)
     _, out["few_edge_grads"] = edge_gradient(
         scene, rtt.RenderOptions(**FEW_EDGE_OPTIONS), 1, mesh)
+    out["second_order"] = {case: second_derivative(*case, mesh)
+                           for case in SECOND_ORDER_CASES}
+    out["firefly"] = firefly_gradient(mesh)
     if train:
         out["losses"], out["trained_diffuse"] = train_losses(mesh)
         out["launches"] = launches_per_gradient(mesh)
