@@ -1,0 +1,201 @@
+"""The readings that a cell's limits are set from: the port's, the
+control's and the planted faults', each against the plain reference, on
+many seeds in one process.  Not run by the benchmark's own runs.
+
+    python3 portbench/control.py --workload <name> --seeds 1,2,3
+        --side program|control|fault:<name> [--seconds S]
+
+  program    a run of the cell (run.run_cell) with a window of --seconds
+             (default: the cell's run_seconds)
+  control    the reference in the port's place, its ray-triangle products
+             rounded to TF32: the step below the float32 with TF32 off
+             that the configuration states
+  fault:*    a run of the cell with a fault planted under the harness
+             (FAULTS)
+
+Prints one JSON line per seed with every number read.
+"""
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+FAULTS = ("frozen_state", "half_samples", "altered_answer", "stale_replay")
+
+
+def _half_samples(opts):
+    return opts._copy_with(num_samples=opts.num_samples // 2,
+                           num_samples_backward=opts.num_samples // 2)
+
+
+# The unit the port produces its image in: a block of swizzled lanes
+# (redner_tpu_torch.render.SWIZZLE_BLOCK), 16 rows by 32 columns.
+ALTERED_BLOCK = (16, 32)
+
+
+def _altered(img):
+    """The image with one block of pixels altered (+1) where it is
+    produced.  A change of fewer pixels lies within the hit flips that
+    two independent float32 intersection tests part on (PERF.md)."""
+    bump = img.new_zeros(img.shape)
+    bump[:ALTERED_BLOCK[0], :ALTERED_BLOCK[1]] = 1.0
+    return img + bump
+
+
+def _stale_graphs(graphs, torch):
+    """Replays that keep the inputs of their capture: Program.forward and
+    .backward copy the call's scene tensors and seed into the graph's
+    static inputs only while the graph is not yet captured."""
+    P = graphs.Program
+
+    def forward(self, tensors, seed):
+        if self.graphs["forward"] is None:
+            self._load(tensors, seed)
+        return self._run("forward")
+
+    def backward(self, tensors, seed, ct):
+        if self.graphs["backward"] is None:
+            self._load(tensors, seed)
+        if self.ct is None:
+            self.ct = torch.empty_like(ct)
+        with torch.no_grad():
+            self.ct.copy_(ct)
+        return self._run("backward")
+
+    return [(P, "forward", forward), (P, "backward", backward)]
+
+
+def _stale_entry(f, scene_tensors, scene_with_tensors):
+    """The same fault where no graph replays (a CPU run): from the third
+    call on, the entry renders the scene tensors and seed of its second
+    call (the capture), with the current leaves' gradients passed through
+    at those stale values."""
+    kept = {}
+
+    def stale(scene, opts, seed=0, **kw):
+        kept["n"] = kept.get("n", 0) + 1
+        ts = scene_tensors(scene)
+        if kept["n"] == 2:
+            kept["inputs"] = ([t.detach().clone() for t in ts], seed)
+        if kept["n"] <= 2:
+            return f(scene, opts, seed=seed, **kw)
+        old, old_seed = kept["inputs"]
+        ts = [o + (t - t.detach()) if t.requires_grad else o
+              for o, t in zip(old, ts)]
+        return f(scene_with_tensors(scene, ts), opts, seed=old_seed, **kw)
+    return stale
+
+
+def plant(fault, rtt, torch, kind, device="cuda"):
+    """Plant `fault` in the entry point that the window of a `kind` loop
+    drives (`render` for "grad", `render_image` for "frame"), in its
+    training step, or in the graph cache under them; returns an undo."""
+    from redner_tpu_torch import graphs
+    from redner_tpu_torch.scene import scene_tensors, scene_with_tensors
+
+    entry = "render" if kind == "grad" else "render_image"
+    f = getattr(rtt, entry)
+    saved = [(rtt, entry, f), (torch.optim.Adam, "step",
+                               torch.optim.Adam.step),
+             (graphs.Program, "forward", graphs.Program.forward),
+             (graphs.Program, "backward", graphs.Program.backward)]
+    if fault == "frozen_state":  # the step returns its state unchanged
+        if kind == "grad":
+            torch.optim.Adam.step = lambda self, closure=None: None
+        else:
+            first = {}
+
+            def frozen(scene, opts, seed=0, **kw):
+                if "img" not in first:
+                    first["img"] = f(scene, opts, seed=seed, **kw)
+                return first["img"].clone()
+            setattr(rtt, entry, frozen)
+    elif fault == "half_samples":  # half the samples, the mean of the rest
+        setattr(rtt, entry, lambda s, o, seed=0, **kw: f(
+            s, _half_samples(o), seed=seed, **kw))
+    elif fault == "altered_answer":
+        setattr(rtt, entry, lambda s, o, seed=0, **kw: _altered(
+            f(s, o, seed=seed, **kw)))
+    elif fault == "stale_replay":
+        if torch.device(device).type == "cuda":
+            for obj, name, val in _stale_graphs(graphs, torch):
+                setattr(obj, name, val)
+        else:
+            setattr(rtt, entry, _stale_entry(f, scene_tensors,
+                                             scene_with_tensors))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+    def undo():
+        for obj, name, val in saved:
+            setattr(obj, name, val)
+    return undo
+
+
+def readings(root, workload, seed, side, seconds, device="cuda"):
+    """Every number read on one seed on one side: {name: value}."""
+    import torch
+
+    import redner_tpu_torch as rtt
+    from portbench import loops, run
+    from portbench.reference import check
+
+    if side != "control":
+        undo = (plant(side.split(":", 1)[1], rtt, torch,
+                      _traffic(root, workload)[1]["kind"], device)
+                if side.startswith("fault:") else (lambda: None))
+        try:
+            numbers = run.run_cell(root, workload, seed, seconds, 0,
+                                   device=device)[2]
+        finally:
+            undo()
+        return numbers
+    cfg, traffic = _traffic(root, workload)
+    dev = torch.device(device)
+    if traffic["kind"] == "grad":
+        prog = check.grad_readings(cfg, traffic, seed, dev, mode="tf32")
+        return check.compare_grad(prog, check.grad_readings(cfg, traffic,
+                                                            seed, dev))
+    ks = loops.checked_frames(traffic, seed, traffic["warm_frames"])
+    prog = check.frame_reference(cfg, traffic, seed, ks, dev, mode="tf32")
+    return check.compare_frames(prog, check.frame_reference(
+        cfg, traffic, seed, ks, dev))
+
+
+def _traffic(root, workload):
+    from portbench.run import _json, load_bench
+
+    bench = load_bench(root)
+    cell = next(w for w in bench["workloads"] if w["name"] == workload)
+    conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    cfg = json.loads((Path(root) / conf["file"]).read_text())
+    return cfg, _json(root, "traffic", cell["traffic"])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--side", default="program")
+    ap.add_argument("--seconds", type=float, default=None)
+    args = ap.parse_args(argv)
+    from portbench.run import load_bench
+
+    seconds = args.seconds or load_bench(ROOT)["run_seconds"]
+    for s in args.seeds.split(","):
+        t0 = time.perf_counter()
+        numbers = readings(ROOT, args.workload, int(s), args.side, seconds)
+        print(json.dumps({"workload": args.workload, "side": args.side,
+                          "seed": int(s), "numbers": numbers,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
