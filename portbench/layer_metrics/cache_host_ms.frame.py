@@ -1,0 +1,12 @@
+"""Host ms per frame in the graph cache's outermost `cache.*` spans
+(lookup, load, replay, copy; eager runs and captures where any), in a
+traced stretch (portbench/program_trace.py)."""
+
+from portbench import program_trace
+
+
+def read(ctx):
+    if ctx.kind != "frame":
+        return None
+    p = program_trace.context(ctx)
+    return None if p is None else p["cache_host_ms"]

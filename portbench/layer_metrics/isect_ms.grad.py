@@ -1,0 +1,16 @@
+"""Device ms per gradient step in the ray queries' `isect.*` phases (the
+launcher's layout, mask and work list, the kernel and the epilogue), of
+both graphs, from the port's own phase events in a traced stretch
+(portbench/program_trace.py)."""
+
+from portbench import program_trace
+
+
+def read(ctx):
+    if ctx.kind != "grad":
+        return None
+    p = program_trace.context(ctx)
+    if p is None:
+        return None
+    return sum(v for k, v in p["device_ms"].items()
+               if k.startswith("isect."))

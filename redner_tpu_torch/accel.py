@@ -19,10 +19,14 @@ they were 33-196x slower per query than the kernels on an H100 (PERF.md).
 
 `precise` is accepted for API parity and ignored: on Hopper every
 precision mode of the TPU kernel is the same exact-f32 path.
+
+Each query is the `isect.closest` / `isect.any` phase (timing.phase): the
+launcher's layout, mask and work list, the kernel and the epilogue.
 """
 
 from __future__ import annotations
 
+from redner_tpu_torch import timing
 from redner_tpu_torch.core.types import Intersection, Ray
 from redner_tpu_torch.ops import intersect as plain
 from redner_tpu_torch.ops import intersect_cuda as ic
@@ -40,20 +44,22 @@ def intersect(fs, ray: Ray, presorted: bool = False, precise=False,
               engine=None) -> Intersection:
     """Closest hit per ray.  presorted: the caller guarantees a
     tile-coherent ray order, so the Morton ray sort is skipped."""
-    rb = ic.prepare_rays(fs, ray, presorted)
-    if _is_plain(engine):
-        best_t, best_i = plain.closest_plain(fs.layout.Tc, rb)
-    else:
-        best_t, best_i = ic.closest_hit(fs.layout, rb)
-    return ic.finish_closest(fs, rb, best_t, best_i)
+    with timing.phase("isect.closest", fs.device):
+        rb = ic.prepare_rays(fs, ray, presorted)
+        if _is_plain(engine):
+            best_t, best_i = plain.closest_plain(fs.layout.Tc, rb)
+        else:
+            best_t, best_i = ic.closest_hit(fs.layout, rb)
+        return ic.finish_closest(fs, rb, best_t, best_i)
 
 
 def occluded(fs, ray: Ray, presorted: bool = False, precise=False,
              engine=None):
     """True where the segment (tmin, tmax) of a ray is blocked."""
-    rb = ic.prepare_rays(fs, ray, presorted)
-    if _is_plain(engine):
-        blocked, _ = plain.anyhit_plain(fs.layout.Tc, rb)
-    else:
-        blocked = ic.any_hit(fs.layout, rb)
-    return ic.finish_anyhit(rb, blocked)
+    with timing.phase("isect.any", fs.device):
+        rb = ic.prepare_rays(fs, ray, presorted)
+        if _is_plain(engine):
+            blocked, _ = plain.anyhit_plain(fs.layout.Tc, rb)
+        else:
+            blocked = ic.any_hit(fs.layout, rb)
+        return ic.finish_anyhit(rb, blocked)

@@ -63,6 +63,8 @@ import contextlib
 import torch
 import torch.distributed as dist
 
+from redner_tpu_torch import timing
+
 
 def shard_count(sharding) -> int:
     """Rank count a sharding splits over (1 for None)."""
@@ -128,7 +130,8 @@ def _all_reduce(x, group, kind):
     if _trace is not None:
         _trace.append((kind, tuple(x.shape)))
     try:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        with timing.phase("collective", x.device, kind=kind):
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     except RuntimeError as e:
         raise RuntimeError(
             f"redner_tpu_torch: all-reduce {COLLECTIVES} of this rank "

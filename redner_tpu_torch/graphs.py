@@ -87,6 +87,18 @@ released, so it captures again without an eager run.  A program that a
 pending autograd ctx holds stays valid: a released graph is captured
 again at its next call.  CACHE_SIZE bounds the number of keys besides.
 
+Tracing (timing.set_tracing): a call's steps are host spans, in the
+order a call takes them: `cache.lookup` (program(): the key, the scene's
+structure and the module constants, every call), `cache.load` (the
+inputs copied into the static tensors), `cache.replay`, `cache.copy` (the
+outputs cloned), `cache.eager` (with its cause: first, memory or
+create_graph), `cache.capture` and `cache.make_room`.  The key holds the
+tracing flag, so a graph captured with tracing on (its phases' events and
+ray-query counters baked in) never replays for an untraced call, and one
+captured with tracing off holds neither.  Counters, always on: RELEASED,
+EMPTY_CACHE and FIRST_RUN beside EAGER, CAPTURES, REPLAYS and
+LAST_CAPTURE.
+
 A backward asked to record (torch.autograd.grad(..., create_graph=True):
 grad enabled inside the backward), and the backward of a render that
 differentiates such a recorded gradient, do not replay: render_grad runs
@@ -106,6 +118,7 @@ import torch
 import torch.distributed as dist
 
 from redner_tpu_torch import edge as edge_mod
+from redner_tpu_torch import timing
 from redner_tpu_torch.core.shardutil import capturable
 from redner_tpu_torch.ops import intersect_cuda as ic
 from redner_tpu_torch.scene import (scene_structure, scene_tensors,
@@ -129,6 +142,14 @@ EAGER = {"create_graph": 0, "memory": 0}
 CAPTURES = {"forward": 0, "backward": 0}
 REPLAYS = {"forward": 0, "backward": 0}
 LAST_CAPTURE = {"forward": None, "backward": None}
+
+# Graphs released to make room; _device_free calls that emptied the
+# allocator's cache (and so waited for the card); and the seconds of each
+# key's first eager run of a graph kind, synchronised at both ends (the
+# run that builds the kernels and measures the need), summed by kind.
+RELEASED = 0
+EMPTY_CACHE = 0
+FIRST_RUN = {"forward": 0.0, "backward": 0.0}
 
 
 def _module_constants():
@@ -165,11 +186,13 @@ def _device_free(device, need=None):
     or a capture, whose private pool comes from the card's free memory),
     the card's free memory after the unused blocks are returned
     (empty_cache, which waits for the card)."""
+    global EMPTY_CACHE
     free = torch.cuda.mem_get_info(device)[0]
     if need is not None:
         free += _unused(device)
         if free >= need:
             return free
+    EMPTY_CACHE += 1
     torch.cuda.empty_cache()
     return torch.cuda.mem_get_info(device)[0]
 
@@ -193,18 +216,26 @@ def _make_room(need, keep, spare=(), eager=False):
     blocks count as free, so the cache is emptied only when they do not
     cover need (_device_free); a capture's pool needs the card's free
     memory.  Whether the free memory covers need."""
-    ask = need if eager else None
-    free = _device_free(keep.device, ask)
-    held = [(p, k) for p in _cache.values()
-            if p is not keep and p.device == keep.device for k in KINDS]
-    for prog, kind in held + [(keep, k) for k in spare]:
-        if need is not None and free >= need:
-            break
-        if prog.graphs[kind] is not None:
-            prog.graphs[kind] = None
-            gc.collect()  # the pool goes with the last reference
-            free = _device_free(keep.device, ask)
-    return need is not None and free >= need
+    global RELEASED
+    with timing.span("cache.make_room"):
+        ask = need if eager else None
+        free = _device_free(keep.device, ask)
+        held = [(p, k) for p in _cache.values()
+                if p is not keep and p.device == keep.device for k in KINDS]
+        for prog, kind in held + [(keep, k) for k in spare]:
+            if need is not None and free >= need:
+                break
+            if prog.graphs[kind] is not None:
+                prog.graphs[kind] = None
+                RELEASED += 1
+                gc.collect()  # the pool goes with the last reference
+                free = _device_free(keep.device, ask)
+        return need is not None and free >= need
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _copy(out):
@@ -217,15 +248,17 @@ def _copy(out):
 
 class _Graph:
     """One captured CUDA graph, its static outputs and the reserved bytes
-    its capture added."""
+    its capture added; captured with tracing on, its phases' events
+    (timing.GraphTrace) and the ray-query lanes each replay launches."""
 
     def __init__(self, kind, body, device):
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         before = dict(ic.LAUNCHES)
+        lanes = {k: w["captured"] for k, w in ic.WORK.items()}
         reserved = torch.cuda.memory_reserved(device)
         try:
-            with torch.cuda.graph(self.graph):
+            with timing.capture() as trace, torch.cuda.graph(self.graph):
                 self.out = body()
         except RuntimeError as e:
             raise RuntimeError(
@@ -234,13 +267,26 @@ class _Graph:
         torch.cuda.synchronize(device)
         self.bytes = torch.cuda.memory_reserved(device) - reserved
         self.kind = kind
+        self.trace = trace if trace.batches else None
+        self.lanes = {k: w["captured"] - lanes[k]
+                      for k, w in ic.WORK.items()}
         CAPTURES[kind] += 1
         LAST_CAPTURE[kind] = {
             "launches": {k: ic.LAUNCHES[k] - before[k] for k in before},
             "seconds": time.perf_counter() - t0, "bytes": self.bytes}
 
     def replay(self):
-        self.graph.replay()
+        if self.trace is not None:
+            # The previous replay's phases are read (which may wait for the
+            # card) before the span, so cache.replay times the launch alone.
+            self.trace.read()
+        with timing.span("cache.replay"):
+            if self.trace is None:
+                self.graph.replay()
+            else:
+                self.trace.replay(self.graph)
+                for k, n in self.lanes.items():
+                    ic.WORK[k]["lanes"] += n
         REPLAYS[self.kind] += 1
 
 
@@ -268,7 +314,7 @@ class Program:
         return sum(g.bytes for g in self.graphs.values() if g is not None)
 
     def _load(self, tensors, seed):
-        with torch.no_grad():
+        with timing.span("cache.load"), torch.no_grad():
             for s, t in zip(self.static, tensors):
                 s.copy_(t)
             self.seed.copy_(seed)
@@ -282,10 +328,21 @@ class Program:
     def run_eagerly(self, kind, body):
         """body() run eagerly, after room is made on the card for the need
         its kind measured at its last run (the key's own graphs of other
-        kinds released last); the need of this run kept."""
-        _make_room(self.needs.get(kind), self,
-                   [k for k in KINDS if k != kind], eager=True)
-        out, need = _measured(body, self.device)
+        kinds released last); the need of this run kept.  A graph kind's
+        first run is timed into FIRST_RUN."""
+        first = kind in KINDS and kind not in self.needs
+        cause = ("create_graph" if kind == "create_graph" else
+                 "memory" if self.eager else "first")
+        with timing.span("cache.eager", cause=cause):
+            _make_room(self.needs.get(kind), self,
+                       [k for k in KINDS if k != kind], eager=True)
+            if first:
+                _sync(self.device)
+                t0 = time.perf_counter()
+            out, need = _measured(body, self.device)
+            if first:
+                _sync(self.device)
+                FIRST_RUN[kind] += time.perf_counter() - t0
         self.needs[kind] = max(need, self.needs.get(kind, 0))
         return out
 
@@ -297,7 +354,8 @@ class Program:
             graph = self._capture(kind)
         if graph is not None:
             graph.replay()
-            return _copy(graph.out)
+            with timing.span("cache.copy"):
+                return _copy(graph.out)
         if self.eager:
             EAGER["memory"] += 1
         return self.run_eagerly(kind, getattr(self, "_" + kind))
@@ -306,16 +364,17 @@ class Program:
         """The graph of `kind`, captured once the card has room for it and
         for the key's other graph where that is measured but not held;
         else None, and the key runs eagerly from then on."""
-        need = CAPTURE_MARGIN * sum(
-            self.needs[k] for k in KINDS
-            if k in self.needs and (k == kind or self.graphs[k] is None))
-        if not _make_room(need, self):
-            self.eager = True
-            self.graphs = dict.fromkeys(KINDS)
-            return None
-        self.graphs[kind] = _Graph(kind, getattr(self, "_" + kind),
-                                   self.device)
-        return self.graphs[kind]
+        with timing.span("cache.capture", kind=kind):
+            need = CAPTURE_MARGIN * sum(
+                self.needs[k] for k in KINDS
+                if k in self.needs and (k == kind or self.graphs[k] is None))
+            if not _make_room(need, self):
+                self.eager = True
+                self.graphs = dict.fromkeys(KINDS)
+                return None
+            self.graphs[kind] = _Graph(kind, getattr(self, "_" + kind),
+                                       self.device)
+            return self.graphs[kind]
 
     def forward(self, tensors, seed):
         """The image of the scene tensors (scene_tensors order) at seed, a
@@ -348,10 +407,12 @@ def _mesh_key(sharding):
 def cache_key(kind, scene, options, correlated, engine, sharding=None):
     """What a program's graphs bake in: the function (kind), the options,
     the correlated flag, the engine, the scene's structure (with the
-    devices of its tensors), the module constants and the mesh of the
-    pixel sharding."""
+    devices of its tensors), the module constants, the tracing flag (a
+    traced graph holds its phases' events and work counters) and, last,
+    the mesh of the pixel sharding."""
     return (kind, options._key(), correlated, engine,
-            scene_structure(scene), _module_constants(), _mesh_key(sharding))
+            scene_structure(scene), _module_constants(),
+            timing.get_tracing(), _mesh_key(sharding))
 
 
 def _group_alive(group):
@@ -375,17 +436,18 @@ def _drop_dead_groups():
 def program(kind, scene, options, correlated, engine, make, sharding=None):
     """The cached Program of this key, made by make(scene) on a miss; the
     least recently used key goes when the cache is full."""
-    _drop_dead_groups()
-    key = cache_key(kind, scene, options, correlated, engine, sharding)
-    prog = _cache.get(key)
-    if prog is None:
-        prog = make(scene)
-        _cache[key] = prog
-        while len(_cache) > CACHE_SIZE:
-            _cache.popitem(last=False)
-    else:
-        _cache.move_to_end(key)
-    return prog
+    with timing.span("cache.lookup"):
+        _drop_dead_groups()
+        key = cache_key(kind, scene, options, correlated, engine, sharding)
+        prog = _cache.get(key)
+        if prog is None:
+            prog = make(scene)
+            _cache[key] = prog
+            while len(_cache) > CACHE_SIZE:
+                _cache.popitem(last=False)
+        else:
+            _cache.move_to_end(key)
+        return prog
 
 
 def replays(device, sharding=None):

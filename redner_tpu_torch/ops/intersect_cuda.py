@@ -21,7 +21,10 @@ sort).
 `closest_hit` / `any_hit` take tensors on one device: on a CUDA tensor they
 launch the kernel (a failed build or launch raises); on a CPU tensor they
 run the plain version from ops/intersect.py.  Each counts its kernel
-launches in LAUNCHES.
+launches in LAUNCHES, and with tracing on (timing.set_tracing) its work
+in WORK: a device-side sum of each launch's active (tile, chunk) pairs,
+which a CUDA graph's replays keep adding, and the lanes launched.  The
+launch itself is the `kernel.closest_hit` / `kernel.any_hit` phase.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from redner_tpu_torch import timing
 from redner_tpu_torch.core.consts import const
 from redner_tpu_torch.core.types import Intersection
 from redner_tpu_torch.ops.intersect import (CHUNK, TILE_N, anyhit_plain,
@@ -51,6 +55,15 @@ MASK_BLOCK = 1 << 23
 # CPU tensors does not count.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0}
 
+# Work of the launches made with tracing on, by kernel: "pairs", the
+# active (tile, chunk) pairs summed on the device ({device: int64
+# scalar}, made outside any capture, so graphs add into it); "lanes", the
+# padded lanes launched (a graph adds its capture's at each replay); and
+# "captured", the lanes of the launches recorded by captures, which run
+# no kernel.
+WORK = {"closest_hit": {"pairs": {}, "lanes": 0, "captured": 0},
+        "any_hit": {"pairs": {}, "lanes": 0, "captured": 0}}
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC = _PKG_DIR / "csrc" / "intersect.cu"
 BUILD_DIR = _PKG_DIR / "_build"
@@ -63,6 +76,39 @@ _lib_handle = None
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count_work(kind, rb):
+    """Adds a launch's pairs on the device and its lanes (tracing on); a
+    captured launch's lanes go to "captured", for the graph's replays to
+    count.  The sum is made at a kernel's first traced launch on a device,
+    which an eager run makes before any capture of the same body; a launch
+    captured before one (none of the port's routes) is not counted."""
+    w = WORK[kind]
+    capturing = torch.cuda.is_current_stream_capturing()
+    acc = w["pairs"].get(rb.R.device)
+    if acc is None:
+        if capturing:
+            return
+        acc = w["pairs"][rb.R.device] = torch.zeros(
+            (), dtype=torch.int64, device=rb.R.device)
+    acc.add_(rb.count[0])
+    w["captured" if capturing else "lanes"] += rb.R.shape[0]
+
+
+def work_counts():
+    """{kernel: (pairs, lanes)} of the traced launches so far (reads the
+    device sums, so it waits for the card)."""
+    return {k: (sum(int(a) for a in w["pairs"].values()), w["lanes"])
+            for k, w in WORK.items()}
+
+
+def reset_work_counts():
+    """Zeros WORK in place (the graphs keep adding into the same sums)."""
+    for w in WORK.values():
+        for a in w["pairs"].values():
+            a.zero_()
+        w["lanes"] = 0
 
 
 # ----------------------------------------------------------------------
@@ -453,7 +499,9 @@ def _launch(fn_name, lay, rb, out):
     if npad % TILE_N:
         raise ValueError(f"{npad} rays are not whole tiles of {TILE_N}")
     counter = torch.zeros((1,), dtype=torch.int32, device=rb.R.device)
-    with torch.cuda.device(rb.R.device):
+    kind = "closest_hit" if fn_name == "rt_closest_hit" else "any_hit"
+    with timing.phase("kernel." + kind, rb.R.device), \
+            torch.cuda.device(rb.R.device):
         stream = torch.cuda.current_stream(rb.R.device).cuda_stream
         err = getattr(_lib(), fn_name)(
             rb.R.data_ptr(), rb.tmin.data_ptr(), rb.tmax.data_ptr(),
@@ -476,6 +524,8 @@ def closest_hit(lay, rb):
                       device=rb.R.device)
     _launch("rt_closest_hit", lay, rb, keys)
     LAUNCHES["closest_hit"] += 1
+    if timing.get_tracing():
+        _count_work("closest_hit", rb)
     return unpack_hit_key(keys)
 
 
@@ -489,4 +539,6 @@ def any_hit(lay, rb):
                           device=rb.R.device)
     _launch("rt_any_hit", lay, rb, blocked)
     LAUNCHES["any_hit"] += 1
+    if timing.get_tracing():
+        _count_work("any_hit", rb)
     return blocked

@@ -53,6 +53,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from redner_tpu_torch import timing
 from redner_tpu_torch.device import resolve_device
 from redner_tpu_torch.render import RenderOptions, render_image
 from redner_tpu_torch.scene import Scene, scene_leaves, scene_with_leaves
@@ -125,8 +126,9 @@ def render_image_sharded(scene: Scene, options: RenderOptions, seed=0,
     the ranks, so every rank holds the one-process gradient."""
     if mesh is None:
         mesh = make_mesh()
-    return render_image(scene, options, seed=seed,
-                        pixel_sharding=pixel_sharding(mesh))
+    with timing.entry("render_image_sharded"):
+        return render_image(scene, options, seed=seed,
+                            pixel_sharding=pixel_sharding(mesh))
 
 
 def render_sharded(scene: Scene, options: RenderOptions, seed=0,
@@ -138,8 +140,9 @@ def render_sharded(scene: Scene, options: RenderOptions, seed=0,
 
     if mesh is None:
         mesh = make_mesh()
-    return render(scene, options, seed=seed,
-                  pixel_sharding=pixel_sharding(mesh))
+    with timing.entry("render_sharded"):
+        return render(scene, options, seed=seed,
+                      pixel_sharding=pixel_sharding(mesh))
 
 
 def make_train_step(options: RenderOptions, mesh: Optional[Mesh] = None,
@@ -164,6 +167,10 @@ def make_train_step(options: RenderOptions, mesh: Optional[Mesh] = None,
     sharding = pixel_sharding(mesh)
 
     def step(scene, target, seed):
+        with timing.entry("train_step"):
+            return _step(scene, target, seed)
+
+    def _step(scene, target, seed):
         leaves = scene_leaves(scene)
         path_of = {id(t): p for p, t in named_tensors(scene).items()}
         train = [trainable is None or trainable(path_of[id(x)])

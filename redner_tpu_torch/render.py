@@ -32,6 +32,14 @@ it made no workload faster (PERF.md).
 `pixel_sharding` (parallel.sharding.pixel_sharding) splits the sample
 loop's pixel lanes over the ranks of a process group; see
 _render_image_impl and core/shardutil.py.
+
+With tracing on (timing.set_tracing) the body records its device phases
+(timing.phase): `fwd` around a forward, `camera` (ray generation),
+`shade.surface` (the hit's surface point and material: the vertex, corner
+and material gathers), and in the bounce loop, with its index,
+`shade.bsdf` (the BSDF sample, then its contribution), `shade.nee` (the
+light sample, then its contribution), `shade.surface` of the hit and
+`edge.secondary`; accel's ray queries are `isect.*` phases.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 import redner_tpu_torch.sampler as sampler_mod
-from redner_tpu_torch import accel
+from redner_tpu_torch import accel, timing
 from redner_tpu_torch.camera import Camera, sample_primary_rays
 from redner_tpu_torch.channels import ChannelInfo, Channels
 from redner_tpu_torch.core import vecmath as vm
@@ -174,6 +182,19 @@ def _surface_point_at(fs: FlatScene, isect: Intersection, ray: Ray,
         dir_dy=torch.where(m3, rd.dir_dy, z3),
     )
     return sp, rd
+
+
+def _shade_surface(fs: FlatScene, isect: Intersection, ray: Ray,
+                   ray_diff: RayDifferential):
+    """The `shade.surface` phase of a camera ray's hit: its surface point
+    (_surface_point_at) and material (fetch_local_material) -> (sp, rd,
+    lm)."""
+    with timing.phase("shade.surface", fs.device) as ph:
+        ph.enter(fs, ray, ray_diff)
+        sp, rd = _surface_point_at(fs, isect, ray, ray_diff)
+        mid = fs.face_material_id[torch.clamp(isect.tri_id, 0,
+                                              fs.num_triangles - 1)]
+        return ph.exit((sp, rd, fetch_local_material(fs, sp, mid)))
 
 
 def _face_emission(fs: FlatScene, tri_id, wi_dot_n, camera_ray: bool = True):
@@ -486,9 +507,8 @@ def trace_radiance(
 
     isect = (accel.intersect(fs, ray, presorted=coherent, engine=engine)
              if primary_isect is None else primary_isect)
-    sp, ray_diff = _surface_point_at(fs, isect, ray, ray_diff)
-    mid = fs.face_material_id[torch.clamp(isect.tri_id, 0, fs.num_triangles - 1)]
-    lm = fetch_local_material(fs, sp, mid)
+    sp, ray_diff, lm = _shade_surface(fs, isect, ray, ray_diff)
+    dev = fs.device
 
     if include_primary_emission:
         emission, _ = _face_emission(
@@ -518,12 +538,14 @@ def trace_radiance(
         bsdf_dim = dim.next(sampler_mod.BSDF_DIMS)
         wi = -incoming_ray.dir
 
-        bsdf_u = sampler_mod.draw(
-            options.sampler_type, seed, lane_ids, sample_id, bsdf_dim, 3
-        )
-        wo, wo_diff, next_min_rough = bsdf_sample(
-            lm, sp, wi, bsdf_u[:, 0], bsdf_u[:, 1:3], min_rough, incoming_diff
-        )
+        with timing.phase("shade.bsdf", dev, bounce=bounce) as ph:
+            ph.enter(lm, sp, wi, min_rough, incoming_diff)
+            bsdf_u = sampler_mod.draw(
+                options.sampler_type, seed, lane_ids, sample_id, bsdf_dim, 3
+            )
+            wo, wo_diff, next_min_rough = ph.exit(bsdf_sample(
+                lm, sp, wi, bsdf_u[:, 0], bsdf_u[:, 1:3], min_rough,
+                incoming_diff))
         bsdf_ray = Ray(
             org=sp.position,
             dir=torch.where(active[..., None], wo, torch.zeros_like(wo)),
@@ -534,37 +556,47 @@ def trace_radiance(
         # exact f32 everywhere, so `precise` has nothing to select.
         nee_dir = None
         if fs.num_lights > 0:
-            light_u = sampler_mod.draw(
-                options.sampler_type, seed, lane_ids, sample_id, light_dim, 4
-            )
-            ls = _sample_light_point(fs, sp.position, light_u)
+            with timing.phase("shade.nee", dev, bounce=bounce) as ph:
+                ph.enter(fs, sp)
+                light_u = sampler_mod.draw(
+                    options.sampler_type, seed, lane_ids, sample_id,
+                    light_dim, 4)
+                ls = ph.exit(_sample_light_point(fs, sp.position, light_u))
             sray = ls["shadow_ray"]
             blocked = accel.occluded(fs, sray, presorted=coherent,
                                      engine=engine)
             bsdf_isect = accel.intersect(fs, bsdf_ray, presorted=coherent,
                                          engine=engine)
-            nee = _nee_contribution(fs, lm, sp, wi, min_rough, ls, blocked)
+            with timing.phase("shade.nee", dev, bounce=bounce) as ph:
+                ph.enter(fs, lm, sp, wi, min_rough, ls)
+                nee = ph.exit(_nee_contribution(fs, lm, sp, wi, min_rough,
+                                                ls, blocked))
             nee_dir = sray.dir
         else:
             nee = torch.zeros((n, 3), **kw)
             bsdf_isect = accel.intersect(fs, bsdf_ray, presorted=coherent,
                                          engine=engine)
-        bsdf_sp, bsdf_diff = _surface_point_at(fs, bsdf_isect, bsdf_ray, wo_diff)
+        with timing.phase("shade.surface", dev, bounce=bounce) as ph:
+            ph.enter(fs, bsdf_ray, wo_diff)
+            bsdf_sp, bsdf_diff = ph.exit(_surface_point_at(
+                fs, bsdf_isect, bsdf_ray, wo_diff))
 
-        scatter, scatter_bsdf = _scatter_contribution(
-            fs, lm, sp, wi, min_rough, bsdf_ray, bsdf_isect, bsdf_sp
-        )
+        with timing.phase("shade.bsdf", dev, bounce=bounce) as ph:
+            ph.enter(fs, lm, sp, wi, min_rough, bsdf_ray, bsdf_sp)
+            scatter, scatter_bsdf = ph.exit(_scatter_contribution(
+                fs, lm, sp, wi, min_rough, bsdf_ray, bsdf_isect, bsdf_sp))
         contrib = throughput * (nee + scatter)
         radiance = radiance + torch.where(active[..., None], contrib,
                                           torch.zeros_like(contrib))
 
         if secondary_d_pixel is not None:
-            surrogate = surrogate + _secondary_edge_term(
-                fs, options, seed, lane_ids, sample_id, bounce,
-                sp, lm, wi, min_rough, active, throughput,
-                secondary_d_pixel, nee_dir, secondary_edge_table,
-                engine=engine, lane_sharding=secondary_lane_sharding,
-            )
+            with timing.phase("edge.secondary", dev, bounce=bounce):
+                surrogate = surrogate + _secondary_edge_term(
+                    fs, options, seed, lane_ids, sample_id, bounce,
+                    sp, lm, wi, min_rough, active, throughput,
+                    secondary_d_pixel, nee_dir, secondary_edge_table,
+                    engine=engine, lane_sharding=secondary_lane_sharding,
+                )
 
         tp = throughput * scatter_bsdf
         throughput = torch.where(active[..., None], tp, torch.zeros_like(tp))
@@ -577,10 +609,12 @@ def trace_radiance(
         incoming_ray = bsdf_ray
         incoming_diff = bsdf_diff
         min_rough = next_min_rough
-        mid = fs.face_material_id[
-            torch.clamp(bsdf_isect.tri_id, 0, fs.num_triangles - 1)
-        ]
-        lm = fetch_local_material(fs, sp, mid)
+        with timing.phase("shade.surface", dev, bounce=bounce) as ph:
+            ph.enter(fs, sp)
+            mid = fs.face_material_id[
+                torch.clamp(bsdf_isect.tri_id, 0, fs.num_triangles - 1)
+            ]
+            lm = ph.exit(fetch_local_material(fs, sp, mid))
     if secondary_d_pixel is not None:
         return radiance, surrogate
     if return_emission:
@@ -721,15 +755,18 @@ def render_sample(
     dim = sampler_mod.DimAllocator()
     cam_dim = dim.next(sampler_mod.CAMERA_DIMS)
     if primary_rays is None:
-        if jitter is None:
-            if options.sample_pixel_center:
-                jitter = torch.full((n, 2), 0.5, dtype=dtype, device=dev)
-            else:
-                jitter = sampler_mod.draw(
-                    options.sampler_type, seed, pixel_ids, sample_id,
-                    cam_dim, 2)
-        ray, ray_diff = sample_primary_rays(camera, jitter,
-                                            pixel_order=pixel_ids)
+        with timing.phase("camera", dev) as ph:
+            ph.enter(camera, jitter)
+            if jitter is None:
+                if options.sample_pixel_center:
+                    jitter = torch.full((n, 2), 0.5, dtype=dtype,
+                                        device=dev)
+                else:
+                    jitter = sampler_mod.draw(
+                        options.sampler_type, seed, pixel_ids, sample_id,
+                        cam_dim, 2)
+            ray, ray_diff = ph.exit(sample_primary_rays(
+                camera, jitter, pixel_order=pixel_ids))
     else:
         ray, ray_diff = primary_rays
 
@@ -741,10 +778,7 @@ def render_sample(
     want_radiance = ci.radiance_dimension >= 0
     img = None  # nothing but radiance: trace_radiance fills every column
     if ci.channels != (Channels.radiance,):
-        sp, _ = _surface_point_at(fs, isect, ray, ray_diff)
-        mid = fs.face_material_id[torch.clamp(isect.tri_id, 0,
-                                              fs.num_triangles - 1)]
-        lm = fetch_local_material(fs, sp, mid)
+        sp, _, lm = _shade_surface(fs, isect, ray, ray_diff)
         img = _accumulate_primary(fs, ci, ray, isect, sp, lm)
     surr = None
     if want_radiance:
@@ -795,36 +829,38 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
     from redner_tpu_torch import graphs
 
     dev = scene.shapes[0].vertices.device
-    seed = sampler_mod._as_u32(seed, dev)
-    recording = torch.is_grad_enabled() and any(
-        x.requires_grad for x in scene_leaves(scene))
-    if graphs.replays(dev, pixel_sharding):
-        if recording:
-            from redner_tpu_torch.render_grad import graphed_render_image
+    with timing.entry("render_image"):
+        seed = sampler_mod._as_u32(seed, dev)
+        recording = torch.is_grad_enabled() and any(
+            x.requires_grad for x in scene_leaves(scene))
+        if graphs.replays(dev, pixel_sharding):
+            if recording:
+                from redner_tpu_torch.render_grad import graphed_render_image
 
-            return graphed_render_image(scene, options, seed, engine,
-                                        pixel_sharding)
-        prog = graphs.program(
-            "render_image", scene, options, None, engine,
-            lambda s: graphs.Program(
-                s, graph_forward(options, engine, pixel_sharding)),
-            pixel_sharding)
-        return prog.forward(scene_tensors(scene), seed)
-    if pixel_sharding is not None and recording:
-        leaves = scene_leaves(scene)
-        grad_leaves = [x for x in leaves if x.requires_grad]
-        wrapped = iter(reduce_leaf_grads(grad_leaves, pixel_sharding))
-        scene = scene_with_leaves(scene, [
-            next(wrapped) if x.requires_grad else x for x in leaves])
-    return _render_image_impl(scene, options, seed, engine,
-                              pixel_sharding=pixel_sharding)
+                return graphed_render_image(scene, options, seed, engine,
+                                            pixel_sharding)
+            prog = graphs.program(
+                "render_image", scene, options, None, engine,
+                lambda s: graphs.Program(
+                    s, graph_forward(options, engine, pixel_sharding)),
+                pixel_sharding)
+            return prog.forward(scene_tensors(scene), seed)
+        if pixel_sharding is not None and recording:
+            leaves = scene_leaves(scene)
+            grad_leaves = [x for x in leaves if x.requires_grad]
+            wrapped = iter(reduce_leaf_grads(grad_leaves, pixel_sharding))
+            scene = scene_with_leaves(scene, [
+                next(wrapped) if x.requires_grad else x for x in leaves])
+        with timing.phase("fwd", dev):
+            return _render_image_impl(scene, options, seed, engine,
+                                      pixel_sharding=pixel_sharding)
 
 
 def graph_forward(options: RenderOptions, engine=None, pixel_sharding=None):
     """The body of a forward CUDA graph (graphs.Program): (scene, seed) ->
-    the image, under no_grad."""
+    the image, under no_grad (the `fwd` phase)."""
     def forward(scene, seed):
-        with torch.no_grad():
+        with torch.no_grad(), timing.phase("fwd", seed.device):
             return _render_image_impl(scene, options, seed, engine,
                                       pixel_sharding=pixel_sharding)
     return forward

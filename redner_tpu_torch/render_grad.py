@@ -63,13 +63,18 @@ autograd graph, which every rank builds alike, so the ranks decide alike.
 jax.grad of `_render_image_jitted`): the same two graphs, its backward
 the body above with both edge samplers off, at the forward's own options
 and seed, which is autograd through render_image.
+
+With tracing on (timing.set_tracing) a backward is the `bwd` phase, made
+of `rerender` (the re-render under autograd, `edge.primary` inside it),
+`autograd` (split into the `bwd:<phase>` of the re-render's phases) and
+`reduce`; a call and its backward share one call id.
 """
 
 from __future__ import annotations
 
 import torch
 
-from redner_tpu_torch import graphs
+from redner_tpu_torch import graphs, timing
 from redner_tpu_torch.core.shardutil import (all_reduce_grads,
                                              reduce_leaf_grads, sharded)
 from redner_tpu_torch.edge import primary_edge_gradients
@@ -105,6 +110,14 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
     w.r.t. each tensors[i] (scene_tensors order) with needs[i], None for
     the others and where a tensor is unused.  seed is the forward's int64
     seed tensor; the decorrelated seed + 1 wraps on the device."""
+    with timing.phase("bwd", ct_img.device):
+        return _scene_grads_body(scene, tensors, needs, options, seed,
+                                 correlated, engine, sharding, ct_img)
+
+
+def _scene_grads_body(scene, tensors, needs, options, seed, correlated,
+                      engine, sharding, ct_img):
+    """_scene_grads inside its `bwd` phase."""
     seed_b = seed if correlated else (seed + 1) & 0xFFFFFFFF
     options_b = options
     if options.num_samples_backward != options.num_samples:
@@ -138,44 +151,49 @@ def _scene_grads(scene, tensors, needs, options, seed, correlated, engine,
     top, left, bottom, right = scene.camera.viewport_or_full
     num_edge_samples = default_num_edge_samples(
         options, (right - left) * (bottom - top))
+    dev = ct_img.device
     with torch.enable_grad():
-        s = scene_with_tensors(scene, leaves)
-        if use_secondary:
-            img, surr = _render_image_impl(
-                s, options_b, seed_b, engine,
-                secondary_d_radiance=ct_img[..., roff:roff + 3],
-                pixel_sharding=sharding)
-        else:
-            img = _render_image_impl(s, options_b, seed_b, engine,
-                                     pixel_sharding=sharding)
-            surr = torch.zeros((), dtype=ct_img.dtype, device=ct_img.device)
-        if options.use_primary_edge_sampling:
-            surr = surr + primary_edge_gradients(
-                s, flatten_scene, render_sample, options_b, seed_b,
-                ct_img, num_edge_samples, engine=engine,
-                lane_sharding=sharding)
-        # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
-        # Under a sharding img is the gathered (replicated) image and ct_img
-        # its whole cotangent, so the first term's gradient reaches this
-        # rank's lanes through the gather's backward (the slice of its
-        # lanes); surr is this rank's part.  Both give the leaves
-        # rank-partial gradients, and under create_graph both give ct_img
-        # its whole (replicated) cotangent: the slice's backward gathers
-        # the ranks' parts.
-        total = torch.sum(img * ct_img) + surr
+        with timing.phase("rerender", dev):
+            s = scene_with_tensors(scene, leaves)
+            if use_secondary:
+                img, surr = _render_image_impl(
+                    s, options_b, seed_b, engine,
+                    secondary_d_radiance=ct_img[..., roff:roff + 3],
+                    pixel_sharding=sharding)
+            else:
+                img = _render_image_impl(s, options_b, seed_b, engine,
+                                         pixel_sharding=sharding)
+                surr = torch.zeros((), dtype=ct_img.dtype, device=dev)
+            if options.use_primary_edge_sampling:
+                with timing.phase("edge.primary", dev):
+                    surr = surr + primary_edge_gradients(
+                        s, flatten_scene, render_sample, options_b, seed_b,
+                        ct_img, num_edge_samples, engine=engine,
+                        lane_sharding=sharding)
+            # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
+            # Under a sharding img is the gathered (replicated) image and
+            # ct_img its whole cotangent, so the first term's gradient
+            # reaches this rank's lanes through the gather's backward (the
+            # slice of its lanes); surr is this rank's part.  Both give the
+            # leaves rank-partial gradients, and under create_graph both
+            # give ct_img its whole (replicated) cotangent: the slice's
+            # backward gathers the ranks' parts.
+            total = torch.sum(img * ct_img) + surr
         wrt = [x for x, n in zip(leaves, needs) if n]
-        grads = torch.autograd.grad(total, wrt, allow_unused=True,
-                                    create_graph=create_graph)
-    if sharding is not None:
-        # Zeros for unused leaves: every rank then reduces the same
-        # shapes, whichever leaves its own lanes reach.  The sum is
-        # differentiable (its backward the identity: a loss of the
-        # gradients is the same on every rank).
-        grads = all_reduce_grads(
-            [torch.zeros_like(x) if g is None else g
-             for x, g in zip(wrt, grads)], sharding)
-    grads = iter(grads)
-    return tuple(next(grads) if n else None for n in needs)
+        with timing.phase("autograd", dev):
+            grads = torch.autograd.grad(total, wrt, allow_unused=True,
+                                        create_graph=create_graph)
+    with timing.phase("reduce", dev):
+        if sharding is not None:
+            # Zeros for unused leaves: every rank then reduces the same
+            # shapes, whichever leaves its own lanes reach.  The sum is
+            # differentiable (its backward the identity: a loss of the
+            # gradients is the same on every rank).
+            grads = all_reduce_grads(
+                [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(wrt, grads)], sharding)
+        grads = iter(grads)
+        return tuple(next(grads) if n else None for n in needs)
 
 
 def _continuous(options):
@@ -249,17 +267,21 @@ class _RenderFunction(torch.autograd.Function):
         ctx.engine = engine
         ctx.pixel_sharding = pixel_sharding
         ctx.outer_passes = set()
+        ctx.call = timing.current_call()
         ctx.save_for_backward(seed, *tensors)
-        return _render_image_impl(scene_with_tensors(scene, tensors), options,
-                                  seed, engine, pixel_sharding=pixel_sharding)
+        with timing.phase("fwd", seed.device):
+            return _render_image_impl(scene_with_tensors(scene, tensors),
+                                      options, seed, engine,
+                                      pixel_sharding=pixel_sharding)
 
     @staticmethod
     def backward(ctx, ct_img):
         # The correlated flag is the one snapshotted when render was called.
         seed, *tensors = ctx.saved_tensors
-        return (None,) * 6 + _backward(
-            ctx, ctx.scene, tensors, seed, ct_img, ctx.options,
-            ctx.correlated, ctx.engine, ctx.pixel_sharding)
+        with timing.entry("render.backward", ctx.call):
+            return (None,) * 6 + _backward(
+                ctx, ctx.scene, tensors, seed, ct_img, ctx.options,
+                ctx.correlated, ctx.engine, ctx.pixel_sharding)
 
 
 class _GraphedRender(torch.autograd.Function):
@@ -276,19 +298,23 @@ class _GraphedRender(torch.autograd.Function):
         ctx.program = program
         ctx.spec = spec
         ctx.outer_passes = set()
+        ctx.call = timing.current_call()
         ctx.save_for_backward(seed, *tensors)
         return program.forward(tensors, seed)
 
     @staticmethod
     def backward(ctx, ct_img):
         seed, *tensors = ctx.saved_tensors
-        if not (torch.is_grad_enabled() or _differentiates_recorded(ctx)):
-            return (None,) * 3 + ctx.program.backward(tensors, seed, ct_img)
-        graphs.EAGER["create_graph"] += 1
-        scene = scene_with_tensors(ctx.program.scene, tensors)
-        return (None,) * 3 + ctx.program.run_eagerly(
-            "create_graph", lambda: _backward(ctx, scene, tensors, seed,
-                                              ct_img, *ctx.spec))
+        with timing.entry("render.backward", ctx.call):
+            if not (torch.is_grad_enabled()
+                    or _differentiates_recorded(ctx)):
+                return (None,) * 3 + ctx.program.backward(tensors, seed,
+                                                          ct_img)
+            graphs.EAGER["create_graph"] += 1
+            scene = scene_with_tensors(ctx.program.scene, tensors)
+            return (None,) * 3 + ctx.program.run_eagerly(
+                "create_graph", lambda: _backward(ctx, scene, tensors, seed,
+                                                  ct_img, *ctx.spec))
 
 
 def _scene_device(scene):
@@ -309,9 +335,10 @@ def make_render(options: RenderOptions, pixel_sharding=None,
     correlated = _use_correlated if correlated is None else bool(correlated)
 
     def fn(scene, seed=0):
-        return _RenderFunction.apply(
-            scene, options, _as_u32(seed, _scene_device(scene)), correlated,
-            engine, pixel_sharding, *scene_tensors(scene))
+        with timing.entry("render"):
+            return _RenderFunction.apply(
+                scene, options, _as_u32(seed, _scene_device(scene)),
+                correlated, engine, pixel_sharding, *scene_tensors(scene))
 
     return fn
 
@@ -356,13 +383,14 @@ def render(scene, options: RenderOptions, seed=0, engine=None,
     if not graphs.replays(dev, pixel_sharding):
         return make_render(options, pixel_sharding, _use_correlated,
                            engine)(scene, seed)
-    prog = graphs.program(
-        "render", scene, options, _use_correlated, engine,
-        _make_program(options, _use_correlated, engine, pixel_sharding),
-        pixel_sharding)
-    return _GraphedRender.apply(
-        prog, (options, _use_correlated, engine, pixel_sharding),
-        _as_u32(seed, dev), *scene_tensors(scene))
+    with timing.entry("render"):
+        prog = graphs.program(
+            "render", scene, options, _use_correlated, engine,
+            _make_program(options, _use_correlated, engine, pixel_sharding),
+            pixel_sharding)
+        return _GraphedRender.apply(
+            prog, (options, _use_correlated, engine, pixel_sharding),
+            _as_u32(seed, dev), *scene_tensors(scene))
 
 
 def _render_image_program(options, engine, sharding=None):

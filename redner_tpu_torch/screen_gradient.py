@@ -22,7 +22,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 import redner_tpu_torch.sampler as sampler_mod
-from redner_tpu_torch import graphs
+from redner_tpu_torch import graphs, timing
 from redner_tpu_torch.edge import primary_edge_screen_gradient_image
 from redner_tpu_torch.render import RenderOptions, render_sample
 from redner_tpu_torch.scene import flatten_scene, scene_tensors
@@ -36,19 +36,25 @@ def screen_gradient_image(scene, options: RenderOptions, seed=0,
     is a fresh tensor from the configuration's graph; a CPU scene and
     graphs.disable() run it eagerly."""
     dev = scene.shapes[0].vertices.device
-    seed = sampler_mod._as_u32(seed, dev)
-    if not graphs.replays(dev):
-        return _screen_gradient(scene, options, seed, engine)
-    prog = graphs.program(
-        "screen_gradient", scene, options, None, engine,
-        lambda s: graphs.Program(
-            s, lambda sc, sd: _screen_gradient(sc, options, sd, engine)))
-    return prog.forward(scene_tensors(scene), seed)
+    with timing.entry("screen_gradient"):
+        seed = sampler_mod._as_u32(seed, dev)
+        if not graphs.replays(dev):
+            return _screen_gradient(scene, options, seed, engine)
+        prog = graphs.program(
+            "screen_gradient", scene, options, None, engine,
+            lambda s: graphs.Program(
+                s, lambda sc, sd: _screen_gradient(sc, options, sd, engine)))
+        return prog.forward(scene_tensors(scene), seed)
 
 
 def _screen_gradient(scene, options, seed, engine):
     """The screen gradient of the scene at the int64 device seed: the body
-    of both routes."""
+    of both routes (the `fwd` phase)."""
+    with timing.phase("fwd", seed.device):
+        return _screen_gradient_body(scene, options, seed, engine)
+
+
+def _screen_gradient_body(scene, options, seed, engine):
     fs = flatten_scene(scene)
     camera = scene.camera
     top, left, bottom, right = camera.viewport_or_full

@@ -13,6 +13,7 @@ not installed; there, skip the repository's conftest (which pins JAX):
 """
 
 import dataclasses
+import itertools
 from types import SimpleNamespace
 
 import numpy as np
@@ -969,3 +970,170 @@ def test_sampling_table_scan_is_the_same_every_run(dev):
     assert torch.unique(runs, dim=0).shape[0] == 1
     want = torch.cumsum(pmf.double(), dim=0).float()
     torch.testing.assert_close(runs[0], want, rtol=1.2e-7, atol=0)
+
+
+# ------------------------------------------------------------- tracing
+
+
+def _kernels_of(call):
+    """Device kernels of call() in a CUDA-only profile (copies and fills,
+    which the profiler names differently from one profile to the next, and
+    the port's spans, record_functions while tracing, left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from redner_tpu_torch import timing
+
+    torch.cuda.synchronize()  # the previous call's kernels left out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    spans = {r.name for r in timing.records(clear=True)}
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.name not in spans
+            and not e.name.lower().startswith(("memcpy", "memset"))]
+
+
+@pytest.mark.cuda
+def test_captured_phases_time_every_replay(dev):
+    """With tracing on a forward graph's phases are event nodes: every
+    replay reads a positive `fwd` time and its phases again, and their
+    sum stays inside the whole body."""
+    from redner_tpu_torch import timing
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(32, 32))
+    graphs.clear()
+    timing.clear()
+    timing.set_tracing(True)
+    try:
+        with torch.no_grad():
+            for seed in range(2):  # the eager run, then the capture
+                rtt.render_image(scene, opts, seed=seed)
+            timing.records(clear=True)
+            for seed in range(2, 5):
+                rtt.render_image(scene, opts, seed=seed)
+                recs = timing.records(clear=True)
+                body = [r for r in recs if r.name == "fwd"]
+                assert len(body) == 1 and body[0].device > 0
+                assert body[0].start is None
+                parts = [r for r in recs if r.parent == body[0].id]
+                assert {"camera", "isect.closest", "isect.any",
+                        "shade.surface", "fwd.other"} <= {
+                            r.name for r in parts}
+                assert sum(r.device for r in parts) == pytest.approx(
+                    body[0].device)
+                assert all(r.device >= 0 for r in parts)
+    finally:
+        timing.set_tracing(False)
+        timing.clear()
+        graphs.clear()
+
+
+@pytest.mark.cuda
+def test_replays_count_the_eager_work(dev):
+    """The ray-query pairs a traced replay adds on the device equal those
+    of an eager traced call at the same inputs, and so do the lanes; a
+    capture, which runs no kernel, counts neither (the key's eager run and
+    its capture step, which replays once, count two calls)."""
+    from redner_tpu_torch import timing
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(32, 32))
+    graphs.clear()
+    timing.set_tracing(True)
+    try:
+        with torch.no_grad():
+            ic.reset_work_counts()
+            with graphs.disable():
+                rtt.render_image(scene, opts, seed=7)
+            eager = ic.work_counts()
+            ic.reset_work_counts()
+            for seed in (7, 7):  # the key's eager run, then the capture
+                rtt.render_image(scene, opts, seed=seed)
+            setup = ic.work_counts()
+            ic.reset_work_counts()
+            rtt.render_image(scene, opts, seed=7)  # a replay
+            replay = ic.work_counts()
+    finally:
+        timing.set_tracing(False)
+        timing.clear()
+        graphs.clear()
+    assert eager["closest_hit"][0] > 0 and eager["any_hit"][1] > 0
+    assert replay == eager
+    assert setup == {k: (2 * p, 2 * n) for k, (p, n) in eager.items()}
+
+
+@pytest.mark.cuda
+def test_untraced_graphs_hold_no_tracing_kernel(dev):
+    """A replay of a graph captured with tracing on runs the untraced
+    graph's kernels and one counter add per ray query, nothing else (its
+    events are not kernels): the untraced graph holds none of them."""
+    import collections
+
+    from redner_tpu_torch import timing
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(32, 32))
+
+    def replayed():
+        with torch.no_grad():
+            for _ in range(2):  # the key's eager run, then the capture
+                rtt.render_image(scene, opts, seed=3)
+            return collections.Counter(_kernels_of(
+                lambda: rtt.render_image(scene, opts, seed=3)))
+
+    graphs.clear()
+    ic.reset_launch_counts()
+    with torch.no_grad(), graphs.disable():
+        rtt.render_image(scene, opts, seed=3)
+    queries = sum(ic.LAUNCHES.values())
+    untraced = replayed()
+    timing.set_tracing(True)
+    try:
+        traced = replayed()
+    finally:
+        timing.set_tracing(False)
+        timing.clear()
+        graphs.clear()
+    extra = traced - untraced
+    assert queries > 0 and not untraced - traced
+    assert len(extra) == 1 and sum(extra.values()) == queries
+
+
+@pytest.mark.cuda
+def test_tracing_changes_no_card_result(dev):
+    """Graphed gradient steps on the card with tracing on and off: the
+    replayed image bit for bit, and each leaf's gradient as close to one of
+    three untraced replays as those are to each other (the index
+    backward's atomics may sum in any order; where they do not, that is
+    bit for bit)."""
+    from redner_tpu_torch import timing
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(32, 32))
+    w = np.random.default_rng(9).uniform(0.5, 1.5, (32, 32, 3)).astype(
+        np.float32)
+    render = lambda s, sd: rtt.render(s, opts, seed=sd)  # noqa: E731
+    graphs.clear()
+    runs = {False: [], True: []}
+    try:
+        for traced, replays in ((False, 3), (True, 1)):
+            timing.set_tracing(traced)
+            for i in range(2 + replays):  # eager, capture, then replays
+                out = _leaf_grads(render, scene, 5, w)
+                if i >= 2:
+                    runs[traced].append(out)
+            timing.set_tracing(False)
+    finally:
+        timing.set_tracing(False)
+        timing.clear()
+        graphs.clear()
+    (img, grads), = runs[True]
+    for ref_img, _ in runs[False]:
+        assert torch.equal(ref_img, img)
+    for j, g in enumerate(grads):
+        us = [u[1][j] for u in runs[False]]
+        tol = max(float((a - b).abs().max())
+                  for a, b in itertools.combinations(us, 2))
+        assert min(float((g - u).abs().max()) for u in us) <= tol
