@@ -198,8 +198,21 @@ Phases (any failure exits non-zero):
              falling over each level and within rtol 1e-3 of eager; the
              launches of the graphed run (counted from zero), its graphs
              captured and replayed, and each step's wall;
- 16. report  one `kernels` JSON line, the nvidia-smi line, and the final
-             {"ok": true, "device": ...} line.
+ 16. gather  gather_rows and scatter_rows (csrc/gather.cu) at the gradient
+             cell's shapes, 65,536 lanes over the light (1x3), material
+             (3x3, 3x12) and face (15,752x34) tables, ids all equal, the
+             slice's hit record in swizzled order, and random: each kernel
+             against its plain version, times against the plain versions,
+             index_put_(accumulate=True) and index_add_ (yardsticks the
+             port never calls) and the bytes' bound, the small tables'
+             scatters on the warp variant too (the one the block variant
+             spares), the merge factor (lane-columns over updates) at each
+             site of one eager gradient of the cell's render, and the
+             gather_cuda launches that phases 4-15 counted on each route
+             beside intersect_cuda's (the render's: gathers and no
+             scatter; the gradient's: every kernel);
+ 17. report  one `kernels` JSON line, a `gather` JSON line, the nvidia-smi
+             line, and the final {"ok": true, "device": ...} line.
 
 Phases 4-11 run inside graphs.disable(): every entry point runs eagerly,
 from Python, so their launch counts, captured batches and decision traces
@@ -226,6 +239,10 @@ bytes each cached key keeps.
     python3 chip_smoke.py --graph-memory
 
 runs graphed_memory alone.
+
+    python3 chip_smoke.py --gather
+
+runs the build, the device line and phase 16 alone (about a minute).
 
     python3 chip_smoke.py --cards N
 
@@ -272,8 +289,10 @@ from redner_tpu_torch import sampler as sampler_mod
 from redner_tpu_torch.camera import sample_primary_rays
 from redner_tpu_torch.core import vecmath as vm
 from redner_tpu_torch.core.types import Ray
+from redner_tpu_torch.ops import gather_cuda as gcu
 from redner_tpu_torch.ops import intersect as plain
 from redner_tpu_torch.ops import intersect_cuda as ic
+from redner_tpu_torch.ops.nvcc import NVCC_FLAGS
 from redner_tpu_torch.parallel.sharding import (make_mesh, make_train_step,
                                                 render_image_sharded,
                                                 render_sharded)
@@ -599,11 +618,29 @@ def work_bound(fs, rb, steps=None):
 # ----------------------------------------------------------------------
 
 
+# gather_cuda's launches on each route the script drives ({route: counts}),
+# read where the route reads intersect_cuda's; phase_gather reports them.
+GATHER_ROUTES = {}
+
+
+def reset_launches():
+    """Zeros both kernel modules' launch counts."""
+    ic.reset_launch_counts()
+    gcu.reset_launch_counts()
+
+
+def note_gather(route):
+    """Records (and returns) gather_cuda's launches since reset_launches()
+    as the route's."""
+    GATHER_ROUTES[route] = dict(gcu.LAUNCHES)
+    return GATHER_ROUTES[route]
+
+
 def phase_build():
     t0 = time.perf_counter()
     lib_path, log = ic.build(verbose=True)
     ic._lib()
-    print(f"[build] nvcc {' '.join(ic.NVCC_FLAGS)} -> "
+    print(f"[build] nvcc {' '.join(NVCC_FLAGS)} -> "
           f"{os.path.relpath(lib_path, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for line in log.strip().splitlines():
@@ -673,13 +710,18 @@ def phase_render(scene, opts):
     with torch.no_grad():
         rtt.render_image(scene, opts, seed=SEED)  # warm-up
         torch.cuda.synchronize()
-        ic.reset_launch_counts()
+        reset_launches()
         img = rtt.render_image(scene, opts, seed=SEED)
         torch.cuda.synchronize()
         launches = dict(ic.LAUNCHES)
-    print(f"[render] main path launches: {launches}", flush=True)
+        gathers = note_gather("render")
+    print(f"[render] main path launches: {launches}; row gathers "
+          f"{gathers}", flush=True)
     _check(launches == {"closest_hit": 8, "any_hit": 4},
            f"main path launches {launches}, want 8 closest hit + 4 any hit")
+    _check(gathers["gather_rows"] > 0 and gathers["scatter_rows.block"]
+           + gathers["scatter_rows.warp"] == 0,
+           f"main path row gathers {gathers}: want gathers and no scatter")
     _check(tuple(img.shape) == (256, 256, 3), f"image shape {tuple(img.shape)}")
     _check(bool(torch.isfinite(img).all()), "image has non-finite values")
     img_max = float(img.max())
@@ -1007,14 +1049,19 @@ def phase_grad(scene, opts, smi_line):
     dev = scene.camera.device
     gradient(scene, opts)  # warm-up
     torch.cuda.synchronize()
-    ic.reset_launch_counts()
+    reset_launches()
     grads = gradient(scene, opts)
     torch.cuda.synchronize()
     launches = dict(ic.LAUNCHES)
+    gathers = note_gather("grad")
     print(f"[grad] launches per gradient evaluation (forward + backward): "
-          f"{launches}; by the code 32 closest hit + 16 any hit", flush=True)
+          f"{launches}; by the code 32 closest hit + 16 any hit; row "
+          f"gathers {gathers}", flush=True)
     _check(all(v > 0 for v in launches.values()),
            f"a kernel did not launch on the gradient path: {launches}")
+    _check(all(v > 0 for v in gathers.values()),
+           f"a row-gather kernel did not launch on the gradient path: "
+           f"{gathers}")
     for name, g in zip(GRAD_LEAVES, grads):
         print(f"[grad] d/d {name}: shape {tuple(g.shape)}, max |g| "
               f"{float(g.abs().max()):.6g}, L2 {float(g.norm()):.6g}",
@@ -1148,11 +1195,13 @@ def phase_envtex(opts, smi_line):
     with torch.no_grad():
         rtt.render_image(scene, opts, seed=SEED)  # warm-up
         torch.cuda.synchronize()
-        ic.reset_launch_counts()
+        reset_launches()
         img = rtt.render_image(scene, opts, seed=SEED)
         torch.cuda.synchronize()
         fwd_launches = dict(ic.LAUNCHES)
-    print(f"[envtex] forward launches: {fwd_launches}", flush=True)
+        fwd_gathers = note_gather("envtex.forward")
+    print(f"[envtex] forward launches: {fwd_launches}; row gathers "
+          f"{fwd_gathers}", flush=True)
     _check(fwd_launches == {"closest_hit": 8, "any_hit": 4},
            f"envtex forward launches {fwd_launches}, want 8 + 4")
     _check(tuple(img.shape) == (256, 256, 3), f"image shape {img.shape}")
@@ -1204,12 +1253,13 @@ def phase_envtex(opts, smi_line):
     # The gradient, with the launch counts zeroed just before.
     envtex_gradient(scene, opts)  # warm-up
     torch.cuda.synchronize()
-    ic.reset_launch_counts()
+    reset_launches()
     grads = envtex_gradient(scene, opts)
     torch.cuda.synchronize()
     grad_launches = dict(ic.LAUNCHES)
-    print(f"[envtex] launches per gradient evaluation: {grad_launches}",
-          flush=True)
+    grad_gathers = note_gather("envtex.grad")
+    print(f"[envtex] launches per gradient evaluation: {grad_launches}; "
+          f"row gathers {grad_gathers}", flush=True)
     _check(grad_launches == {"closest_hit": 32, "any_hit": 16},
            f"envtex gradient launches {grad_launches}, want 32 + 16")
     for name, g in zip(ENVTEX_LEAVES, grads):
@@ -1468,14 +1518,14 @@ def phase_aov(smi_line):
         if grad:
             aov_render(name, scene, grad=True)  # warm-up
         torch.cuda.synchronize()
-        ic.reset_launch_counts()
+        reset_launches()
         out = []
         caps[name] = capture_launches(
             lambda: out.append(aov_render(name, scene)[0]))
         out = out[0]
         row = {"launches": dict(ic.LAUNCHES)}
         if grad:
-            ic.reset_launch_counts()
+            reset_launches()
             grads = []
             cap = capture_launches(
                 lambda: grads.extend(aov_render(name, scene, grad=True)[1]))
@@ -1761,13 +1811,13 @@ def check_scene_paths(tag, camera, scene, scene_cpu, opts, smi_line, reps):
     Returns (row, the forward's captured batches, FlatScene)."""
     fs = rtt.flatten_scene(scene)
     with torch.no_grad():
-        ic.reset_launch_counts()
+        reset_launches()
         out = []
         fwd_cap = capture_launches(
             lambda: out.append(rtt.render_image(scene, opts, seed=SEED)))
         row = {"launches": dict(ic.LAUNCHES)}
     img = out[0]
-    ic.reset_launch_counts()
+    reset_launches()
     grads = []
     grad_cap = capture_launches(
         lambda: grads.extend(leaf_gradient(scene, opts)))
@@ -1998,7 +2048,7 @@ def counted(run):
     """run() with the launch counts zeroed just before and read just
     after -> (its result, {kernel: launches})."""
     torch.cuda.synchronize()
-    ic.reset_launch_counts()
+    reset_launches()
     out = run()
     torch.cuda.synchronize()
     return out, dict(ic.LAUNCHES)
@@ -3038,13 +3088,15 @@ def graph_route(name, path, smi_line, tag="graph", rerenders=False,
     sync_check({name: path}, [name], warm=False)
     want = {k: v * (2 if rerenders else 1) for k, v in eager.items()}
     torch.cuda.synchronize()
-    ic.reset_launch_counts()
+    reset_launches()
     row = graph_vs_eager(name, path, smi_line, tag)
     main = dict(ic.LAUNCHES)
+    gathers = note_gather(f"{tag}.{name}")
     nodes = {k: sum(n[k] for n in row["nodes"].values()) for k in eager}
     print(f"[{tag}] {name} launches (capture and the eager comparisons "
-          f"included) {main}; kernel nodes at capture {nodes}, the eager "
-          f"route's launches {eager}, predicted nodes {want}", flush=True)
+          f"included) {main}, row gathers {gathers}; kernel nodes at "
+          f"capture {nodes}, the eager route's launches {eager}, predicted "
+          f"nodes {want}", flush=True)
     _check(all(v > 0 for v in main.values()),
            f"{name}: a kernel did not launch on the graphed route: {main}")
     _check(nodes == want, f"{name}: kernel nodes {nodes}, want {want}")
@@ -3083,12 +3135,14 @@ def phase_graph(scene, opts, smi_line):
     # The main path through the graphs: the counts zeroed before the first
     # call of the slice's gradient, read after (its capture launches).
     torch.cuda.synchronize()
-    ic.reset_launch_counts()
+    reset_launches()
     rows = {"slice": graph_vs_eager("slice", paths["slice"], smi_line)}
     main = dict(ic.LAUNCHES)
+    gathers = note_gather("graph.slice")
     nodes = {k: sum(rows["slice"]["nodes"][g][k]
                     for g in ("forward", "backward")) for k in GRAPH_NODES}
-    print(f"[graph] slice main path (capture included) launches {main}; "
+    print(f"[graph] slice main path (capture included) launches {main}, "
+          f"row gathers {gathers}; "
           f"kernel nodes per graphed gradient {nodes}, predicted "
           f"{GRAPH_NODES}", flush=True)
     _check(all(v > 0 for v in main.values()),
@@ -3272,7 +3326,7 @@ def phase_second_order(scene, opts, smi_line, sharded=None):
               "render_image": lambda s: rtt.render_image(s, opts, seed=SEED)}
     graphs.clear()
     torch.cuda.synchronize()
-    ic.reset_launch_counts()
+    reset_launches()
     rows, eager_h = {}, {}
     for name, fn in routes.items():
         eager0 = graphs.EAGER["create_graph"]
@@ -3306,7 +3360,9 @@ def phase_second_order(scene, opts, smi_line, sharded=None):
         _check(routed == 6, f"{name}: {routed} create_graph routes, want 6")
     torch.cuda.synchronize()
     launches = dict(ic.LAUNCHES)
-    print(f"[second_order] launches of the phase {launches}", flush=True)
+    gathers = note_gather("second_order")
+    print(f"[second_order] launches of the phase {launches}; row gathers "
+          f"{gathers}", flush=True)
     _check(all(v > 0 for v in launches.values()),
            f"[second_order]: a kernel did not launch: {launches}")
     graphs.clear()
@@ -3360,6 +3416,256 @@ def check_sharded_second_order(runs, refs, smi_line, tag="second_order"):
 
 
 # ----------------------------------------------------------------------
+# The row gathers and their scatter-add backward (--gather)
+# ----------------------------------------------------------------------
+
+# (site, rows, cols): the gradient cell's tables.
+GATHER_TABLES = (("light_intensity", 1, 3), ("mat_const", 3, 3),
+                 ("mat_ftab", 3, 12), ("face_pack", 15752, 34))
+GATHER_LANES = 65536  # a 256x256 pass
+
+
+def gather_bound_ms(n, rows, cols):
+    """Each input byte read once and each output byte written once at the
+    HBM rate, the same both ways: n int64 ids, then the table in and n rows
+    out (gather) or n rows of gradients in and the table out (scatter)."""
+    return (8 * n + 4 * (n * cols + rows * cols)) / PEAK_HBM_BYTES * 1e3
+
+
+def _device_ms(fn, calls=10, rounds=5):
+    """Device ms a call: `calls` calls captured back to back in one CUDA
+    graph (so the host's launches are left out), the graph replayed
+    `rounds` times between CUDA events; the median."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def gather_hit_ids(dev):
+    """(triangle ids, material ids) of a 256x256 pass of pixel-centre
+    primary rays over the slice scene, in render.swizzle_order."""
+    from redner_tpu_torch.render import _swizzle_tensors
+
+    scene = make_slice_scene(device=dev)
+    fs = rtt.flatten_scene(scene)
+    order, _ = _swizzle_tensors(256, 256, dev)
+    with torch.no_grad():
+        ray, _ = sample_primary_rays(
+            scene.camera, torch.full((GATHER_LANES, 2), 0.5, device=dev),
+            pixel_order=order)
+        tri = accel.intersect(fs, ray, presorted=True).tri_id
+    return tri, fs.face_material_id[tri.clamp(0, fs.num_triangles - 1)]
+
+
+def site_merges(dev):
+    """One eager gradient of the gradient cell's render (slice scene,
+    256x256, 4 spp, 1 bounce, edge samplers off; the sphere's vertices and
+    material, the light and the camera's position as leaves) with tracing
+    on: per table shape, the scatters' launches, variant, lane-columns and
+    updates (their ratio is the merge factor)."""
+    opts = rtt.RenderOptions(num_samples=4, max_bounces=1,
+                             use_primary_edge_sampling=False,
+                             use_secondary_edge_sampling=False)
+    scene = make_slice_scene(device=dev)
+    leaves = [scene.shapes[0].vertices, scene.area_lights[0].intensity,
+              scene.materials[0].diffuse_reflectance.texels,
+              scene.materials[0].specular_reflectance.texels,
+              scene.materials[0].roughness.texels, scene.camera.position]
+    sites = {}
+    wrapped = gcu.scatter_kernel
+
+    def counted(src, idx, rows):
+        torch.cuda.synchronize()
+        before = gcu.work_counts()
+        out = wrapped(src, idx, rows)
+        torch.cuda.synchronize()
+        after = gcu.work_counts()
+        key = f"{rows}x{src.shape[-1]}"
+        row = sites.setdefault(key, {
+            "variant": gcu.scatter_variant(rows, src.shape[-1],
+                                          src.element_size()),
+            "launches": 0, "lane_cols": 0, "updates": 0})
+        row["launches"] += 1
+        row["lane_cols"] += after[0] - before[0]
+        row["updates"] += after[1] - before[1]
+        return out
+
+    from redner_tpu_torch import timing
+
+    for x in leaves:
+        x.requires_grad_(True)
+    gcu.scatter_kernel = counted
+    timing.set_tracing(True)
+    try:
+        with graphs.disable():
+            img = rtt.render(scene, opts, seed=SEED)
+            torch.autograd.grad(img.sum(), leaves)
+        torch.cuda.synchronize()
+    finally:
+        timing.set_tracing(False)
+        timing.clear()
+        gcu.scatter_kernel = wrapped
+        for x in leaves:
+            x.requires_grad_(False)
+    for row in sites.values():
+        row["merge"] = row["lane_cols"] / max(row["updates"], 1)
+    return sites
+
+
+def warp_variant(fn):
+    """fn() with every scatter_kernel on the warp variant, whatever the
+    table's size: what the small tables' block variant saves."""
+    chosen = gcu.scatter_variant
+    gcu.scatter_variant = lambda rows, cols, itemsize: "warp"
+    try:
+        return fn()
+    finally:
+        gcu.scatter_variant = chosen
+
+
+def phase_gather(smi_line):
+    """gather_rows and scatter_rows at the gradient cell's shapes (65,536
+    lanes; the light, material and face tables; ids all equal, the slice
+    scene's hit record in swizzled order, and random ones out of range
+    included): each kernel against its plain version (the gather bit for
+    bit, the scatter within 1e-5 of the float64 sum's largest value), then
+    device times (_device_ms: calls back to back in a CUDA graph, warm L2)
+    of the kernels, the plain versions and, as yardsticks the port never
+    calls, index_put_(accumulate=True) and index_add_ on a zeroed table,
+    and the eager scatter call (host and device); for the tables of the
+    block variant, the warp variant on the same inputs too (checked and
+    timed alike); the bound; the merge factor at each site of one eager
+    gradient of the cell's render; and the launches of each route the
+    full script drove before this phase (GATHER_ROUTES)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib_path, log = gcu.build(verbose=True)
+    gcu._lib()
+    print(f"[gather] nvcc -> {os.path.relpath(lib_path, ROOT)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in log.strip().splitlines():
+        print(f"[gather] {line}")
+    tri, mid = gather_hit_ids(dev)
+    rng = torch.Generator(device=dev).manual_seed(SEED)
+    rows_out = []
+    for site, rows, cols in GATHER_TABLES:
+        table = torch.randn((rows, cols), generator=rng, device=dev)
+        src = torch.randn((GATHER_LANES, cols), generator=rng, device=dev)
+        for kind in ("hits", "equal", "random"):
+            if kind == "hits":
+                idx = tri if rows > 3 else mid
+            elif kind == "equal":
+                idx = torch.zeros_like(tri)
+            else:
+                idx = torch.randint(-2, rows + 2, (GATHER_LANES,),
+                                    generator=rng, device=dev)
+            gcu.reset_launch_counts()
+            out = gcu.gather_kernel(table, idx)
+            got = gcu.scatter_kernel(src, idx, rows)
+            want = gcu.scatter_plain(src.double(), idx, rows)
+            _check(torch.equal(out, gcu.gather_plain(table, idx)),
+                   f"{site}/{kind}: the gather differs from table[idx]")
+            err = float((got.double() - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            _check(err <= 1e-5, f"{site}/{kind}: the scatter is off the "
+                   f"float64 sum by {err:.3g} of its largest value")
+            variant = gcu.scatter_variant(rows, cols, 4)
+            _check(gcu.LAUNCHES["scatter_rows." + variant] == 1,
+                   f"{site}/{kind}: launches {gcu.LAUNCHES}")
+            ic_ = idx.clamp(0, rows - 1)
+            zero = torch.zeros((rows, cols), device=dev)
+            row = {
+                "site": site, "rows": rows, "cols": cols, "ids": kind,
+                "variant": variant, "rel_err": err,
+                "gather_ms": _device_ms(lambda: gcu.gather_kernel(table, idx)),
+                "gather_plain_ms": _device_ms(
+                    lambda: gcu.gather_plain(table, idx)),
+                "scatter_ms": _device_ms(
+                    lambda: gcu.scatter_kernel(src, idx, rows)),
+                "scatter_plain_ms": _device_ms(
+                    lambda: gcu.scatter_plain(src, idx, rows)),
+                "index_put_ms": _device_ms(lambda: zero.index_put_(
+                    (ic_,), src, accumulate=True)),
+                "index_add_ms": _device_ms(
+                    lambda: zero.index_add_(0, ic_, src)),
+                "scatter_eager_ms": time_cuda(
+                    lambda: gcu.scatter_kernel(src, idx, rows), 50,
+                    rounds=3)[0],
+                "bound_ms": gather_bound_ms(GATHER_LANES, rows, cols)}
+            if variant == "block":
+                got_w = warp_variant(lambda: gcu.scatter_kernel(
+                    src, idx, rows))
+                err_w = float((got_w.double() - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                _check(err_w <= 1e-5, f"{site}/{kind}: the warp variant is "
+                       f"off the float64 sum by {err_w:.3g}")
+                row["warp_scatter_ms"] = warp_variant(lambda: _device_ms(
+                    lambda: gcu.scatter_kernel(src, idx, rows)))
+                print(f"[gather] {site} {rows}x{cols}, ids {kind}: warp "
+                      f"variant (not chosen) {row['warp_scatter_ms']:.5f} "
+                      f"device ms a call (graphed) against the block "
+                      f"variant's {row['scatter_ms']:.5f}; rel err "
+                      f"{err_w:.3g}", flush=True)
+            rows_out.append(row)
+            print(f"[gather] {site} {rows}x{cols}, ids {kind}: {variant}; "
+                  f"device ms a call (graphed): scatter "
+                  f"{row['scatter_ms']:.5f} (plain "
+                  f"{row['scatter_plain_ms']:.5f}, index_put_ "
+                  f"{row['index_put_ms']:.5f}, index_add_ "
+                  f"{row['index_add_ms']:.5f}), gather "
+                  f"{row['gather_ms']:.5f} (plain "
+                  f"{row['gather_plain_ms']:.5f}); bound "
+                  f"{row['bound_ms']:.5f} (bytes), scatter time / bound "
+                  f"{row['scatter_ms'] / row['bound_ms']:.2f}; eager "
+                  f"scatter call {row['scatter_eager_ms']:.5f} ms; rel err "
+                  f"{err:.3g}; {smi_line}", flush=True)
+    sites = site_merges(dev)
+    for key, row in sorted(sites.items()):
+        print(f"[gather] site {key}: {row['launches']} {row['variant']} "
+              f"scatters, {row['lane_cols']} lane-columns, "
+              f"{row['updates']} updates: merge factor "
+              f"{row['merge']:.1f}", flush=True)
+    for route, counts in GATHER_ROUTES.items():
+        print(f"[gather] route {route}: launches {counts}", flush=True)
+    return {"tables": rows_out, "sites": sites,
+            "routes": dict(GATHER_ROUTES)}
+
+
+def gather_main():
+    """--gather: the build, the device line and phase_gather alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    phase_build()
+    smi_line = phase_device()
+    out = phase_gather(smi_line)
+    print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"gather": out}))
+    return 0
+
+
+# ----------------------------------------------------------------------
 # The tutorials' inverse-rendering loops (tutorials/torch_port)
 # ----------------------------------------------------------------------
 
@@ -3399,12 +3705,13 @@ def phase_tutorials(smi_line):
         mod = load_tutorial(name)
         graphs.clear()
         torch.cuda.synchronize()
-        ic.reset_launch_counts()
+        reset_launches()
         cap0, rep0 = dict(graphs.CAPTURES), dict(graphs.REPLAYS)
         eager0 = graphs.EAGER["memory"]
         got = mod.main(steps=steps)
         torch.cuda.synchronize()
         launches = dict(ic.LAUNCHES)
+        note_gather(f"tutorials.{name}")
         captures = {k: graphs.CAPTURES[k] - cap0[k] for k in cap0}
         replays = {k: graphs.REPLAYS[k] - rep0[k] for k in rep0}
         with graphs.disable():
@@ -3921,6 +4228,8 @@ def main():
     lap("second_order")
     tut_rows = phase_tutorials(smi_line)
     lap("tutorials")
+    gather_row = phase_gather(smi_line)
+    lap("gather")
 
     kernels = []
     for kind, rows in per.items():
@@ -4025,6 +4334,7 @@ def main():
                     for k in ("dead_share", "ms", "plain_ms", "bound_ms")}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"gather": gather_row}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4036,6 +4346,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--screen-rounds"] and len(sys.argv) == 3:
         SCREEN_ROUNDS = int(sys.argv[2])
         sys.exit(main())
+    if sys.argv[1:] == ["--gather"]:
+        sys.exit(gather_main())
     if sys.argv[1:] == ["--memory"]:
         sys.exit(memory_main())
     if sys.argv[1:] == ["--graph-memory"]:

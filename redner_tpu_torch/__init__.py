@@ -8,7 +8,10 @@ triangle meshes with constant or mipmapped image-texture materials (the
 MaterialBank), normal maps and generic textures, area lights, a lat-long
 environment map, the independent and Sobol samplers and all 16 AOV
 channels, with every ray query on two hand-written CUDA kernels
-(ops/intersect_cuda.py, csrc/intersect.cu); `render`, a
+(ops/intersect_cuda.py, csrc/intersect.cu) and every per-lane row fetch of
+a float table (face rows, materials, light intensities) and its
+scatter-add backward on two more (ops/gather_cuda.py, csrc/gather.cu);
+`render`, a
 torch.autograd.Function whose backward adds primary and secondary edge
 sampling (the visibility gradients) to the continuous ones; the screen
 gradient (`screen_gradient_image`); and the pyredner-style utilities

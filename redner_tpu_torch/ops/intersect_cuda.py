@@ -30,10 +30,6 @@ launch itself is the `kernel.closest_hit` / `kernel.any_hit` phase.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
@@ -46,6 +42,7 @@ from redner_tpu_torch.core.types import Intersection
 from redner_tpu_torch.ops.intersect import (CHUNK, TILE_N, anyhit_plain,
                                             closest_plain, ray_features,
                                             triangle_coefficients)
+from redner_tpu_torch.ops.nvcc import CSRC, build_library
 
 SORT_MIN_CHUNKS = 8  # the Morton ray sort pays off above this many chunks
 # Ray x chunk elements per block of the activity mask's slab tests.
@@ -64,11 +61,7 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0}
 WORK = {"closest_hit": {"pairs": {}, "lanes": 0, "captured": 0},
         "any_hit": {"pairs": {}, "lanes": 0, "captured": 0}}
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-_SRC = _PKG_DIR / "csrc" / "intersect.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_SRC = CSRC / "intersect.cu"
 
 _lib_handle = None
 
@@ -116,39 +109,11 @@ def reset_work_counts():
 # ----------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("redner_tpu_torch: nvcc not found (set CUDA_HOME)")
-
-
 def build(verbose: bool = False) -> Tuple[Path, str]:
-    """Compile csrc/intersect.cu for sm_90a into BUILD_DIR (once per source
-    version).  Returns (library path, compiler output); verbose adds
-    `-Xptxas -v` (registers, shared memory and spills per kernel) and
-    forces a rebuild so the report is fresh."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libintersect_{tag}.so"
-    if out.exists() and not verbose:
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"redner_tpu_torch: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    """Compile csrc/intersect.cu for sm_90a into nvcc.BUILD_DIR (once per
+    source version; nvcc.build_library).  Returns (library path, compiler
+    output); verbose adds `-Xptxas -v` and forces a rebuild."""
+    return build_library(_SRC, "intersect", verbose)
 
 
 def _lib():
@@ -274,10 +239,19 @@ def _tile_chunk_mask(org, d, tmin, tmax, live, ntile, cl_min, cl_max,
     small = torch.where(d >= 0, 1e-20, -1e-20).to(d.dtype)
     safe_d = torch.where(live[:, None] & (torch.abs(d) > 1e-20), d, small)
     inv_d = 1.0 / safe_d
-    t0 = (cl_min[None, :, :] - org[:, None, :]) * inv_d[:, None, :]
-    t1 = (cl_max[None, :, :] - org[:, None, :]) * inv_d[:, None, :]
-    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)  # (N, C)
-    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    # A ray enters each axis's slab at the box's low side where it runs up
+    # the axis and at its high side where it runs down: that side's
+    # distance is min(t0, t1) of the two sides' (the difference and the
+    # product by a nonzero inv_d keep their order), so each side is computed
+    # alone, in one (rays, nchunks, 3) buffer, the largest of a ray query's
+    # temporaries.
+    up = (inv_d >= 0)[:, None, :]
+    side = torch.where(up, cl_min[None, :, :], cl_max[None, :, :])
+    side.sub_(org[:, None, :]).mul_(inv_d[:, None, :])
+    t_near = torch.amax(side, dim=-1)  # (N, C)
+    torch.where(up, cl_max[None, :, :], cl_min[None, :, :], out=side)
+    side.sub_(org[:, None, :]).mul_(inv_d[:, None, :])
+    t_far = torch.amin(side, dim=-1)
     hit = (
         (t_far >= t_near)
         & (t_far >= tmin[:, None])

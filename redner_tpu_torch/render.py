@@ -67,12 +67,14 @@ from redner_tpu_torch.envmap import envmap_eval, envmap_pdf, envmap_sample
 from redner_tpu_torch.geometry import build_surface_point, sample_tri_point
 from redner_tpu_torch.material import (LocalMaterial, bsdf, bsdf_pdf,
                                        bsdf_sample, perturb_shading_frame)
+from redner_tpu_torch.ops.gather_cuda import gather_rows
 from redner_tpu_torch.sampler import SamplerType
 from redner_tpu_torch.scene import (FlatScene, Scene, _fetch_material_stack,
-                                    fetch_local_material, flatten_scene,
-                                    gather_face_corner_attribs,
-                                    gather_face_vertices, scene_leaves,
-                                    scene_tensors, scene_with_leaves)
+                                    face_corner_attribs, face_rows,
+                                    face_vertices, fetch_local_material,
+                                    flatten_scene, gather_face_vertices,
+                                    scene_leaves, scene_tensors,
+                                    scene_with_leaves)
 
 
 class RenderOptions:
@@ -146,10 +148,9 @@ def _surface_point_at(fs: FlatScene, isect: Intersection, ray: Ray,
     Missed lanes re-derive a point on a clamped triangle whose values can
     be huge; they are replaced at the source by a benign on-origin point
     with unit frames so no NaN reaches a gradient through 0*inf."""
-    v0, v1, v2 = gather_face_vertices(fs, isect.tri_id)
-    (uv0, uv1, uv2, n0, n1, n2, has_n, c0, c1, c2) = gather_face_corner_attribs(
-        fs, isect.tri_id
-    )
+    row = face_rows(fs, isect.tri_id)
+    v0, v1, v2 = face_vertices(row)
+    (uv0, uv1, uv2, n0, n1, n2, has_n, c0, c1, c2) = face_corner_attribs(row)
     sp, rd = build_surface_point(
         v0, v1, v2, uv0, uv1, uv2, n0, n1, n2, has_n, c0, c1, c2, ray, ray_diff
     )
@@ -208,7 +209,7 @@ def _face_emission(fs: FlatScene, tri_id, wi_dot_n, camera_ray: bool = True):
         return torch.zeros(tri_id.shape + (3,), dtype=fs.vertices.dtype,
                            device=fs.device), is_light
     lid_c = torch.clamp(lid, 0, fs.num_area_lights - 1)
-    intensity = fs.light_intensity[lid_c]
+    intensity = gather_rows(fs.light_intensity, lid_c)
     two_sided = fs.light_two_sided[lid_c]
     ok = is_light & (two_sided | (wi_dot_n > 0))
     if camera_ray:
@@ -347,7 +348,7 @@ def _nee_contribution(fs, lm, sp, wi, min_rough, ls, blocked):
         dist_sq = vm.length_squared(dirv)
         ok = dist_sq > 1e-20
         wo = vm.normalize(dirv)
-        intensity = fs.light_intensity[lidx]
+        intensity = gather_rows(fs.light_intensity, lidx)
         two_sided = fs.light_two_sided[lidx]
         front = two_sided | (vm.dot(-wo, lnormal) > 0)
         bsdf_val = bsdf(lm, sp, wi, wo, min_rough)
@@ -391,7 +392,7 @@ def _face_emission_nee(fs, isect, wo, sp_light):
     if fs.num_area_lights == 0:
         return torch.zeros_like(wo), is_light
     lidc = torch.clamp(lid, 0, fs.num_area_lights - 1)
-    intensity = fs.light_intensity[lidc]
+    intensity = gather_rows(fs.light_intensity, lidc)
     two_sided = fs.light_two_sided[lidc]
     front = two_sided | (vm.dot(-wo, sp_light.frame_n) > 0)
     ok = is_light & front

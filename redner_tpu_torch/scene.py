@@ -30,6 +30,7 @@ from redner_tpu_torch.envmap import EnvironmentMap, PackedEnvmap, pack_envmap
 from redner_tpu_torch.geometry import Shape, tri_areas
 from redner_tpu_torch.light import AreaLight
 from redner_tpu_torch.material import LocalMaterial, Material
+from redner_tpu_torch.ops.gather_cuda import gather_rows
 from redner_tpu_torch.texture import (MaterialBank, PackedTexture, bank_eval,
                                       pack_material_bank, pack_texture,
                                       texture_eval)
@@ -366,20 +367,25 @@ def flatten_scene(scene: Scene, dtype=torch.float32) -> FlatScene:
 # ------------------------------------------------------------------
 
 
-def _face_rows(fs: FlatScene, tri_id):
-    return fs.face_pack[torch.clamp(tri_id, 0, fs.num_triangles - 1)]
+def face_rows(fs: FlatScene, tri_id):
+    """The face_pack row (34 floats) of each lane's triangle id, clamped
+    to the scene's triangles: one gather_rows."""
+    return gather_rows(fs.face_pack, tri_id)
+
+
+def face_vertices(row):
+    """Per-corner world positions (..., 3)x3 of face_pack rows."""
+    return row[..., 0:3], row[..., 3:6], row[..., 6:9]
 
 
 def gather_face_vertices(fs: FlatScene, tri_id):
     """Per-corner world positions for (clamped) triangle ids (..., 3)x3,
     from one wide face_pack row gather."""
-    row = _face_rows(fs, tri_id)
-    return row[..., 0:3], row[..., 3:6], row[..., 6:9]
+    return face_vertices(face_rows(fs, tri_id))
 
 
-def gather_face_corner_attribs(fs: FlatScene, tri_id):
-    """(uv0,uv1,uv2, n0,n1,n2, has_normals, c0,c1,c2) for triangle ids."""
-    row = _face_rows(fs, tri_id)
+def face_corner_attribs(row):
+    """(uv0,uv1,uv2, n0,n1,n2, has_normals, c0,c1,c2) of face_pack rows."""
     return (
         row[..., 18:20], row[..., 20:22], row[..., 22:24],
         row[..., 9:12], row[..., 12:15], row[..., 15:18],
@@ -394,16 +400,16 @@ def fetch_local_material(fs: FlatScene, sp, material_id) -> LocalMaterial:
     per constant stack (the JAX package's one-hot matmul selects the same
     rows exactly), one flag-row gather, and for textured stacks one int-row
     gather shared by all of them plus the bank's 8 texel taps per stack."""
-    mid = torch.clamp(material_id, 0, fs.num_materials - 1)
     uv, du, dv = sp.uv, sp.du_dxy, sp.dv_dxy
-    frow = fs.mat_ftab[mid]  # (..., 12)
-    irow = fs.mat_itab[mid] if fs.mat_itab is not None else None
+    frow = gather_rows(fs.mat_ftab, material_id)  # (..., 12)
+    irow = (fs.mat_itab[torch.clamp(material_id, 0, fs.num_materials - 1)]
+            if fs.mat_itab is not None else None)
     Wrow = fs.mat_bank.tab.shape[-1] if fs.mat_bank is not None else 0
 
     def stack_val(k, channels):
         pos = fs.mat_bank_pos[k]
         if pos < 0:
-            val = fs.mat_const[k][mid]
+            val = gather_rows(fs.mat_const[k], material_id)
         else:
             uvs = frow[..., 2 * k:2 * k + 2]
             val = bank_eval(fs.mat_bank, irow[..., pos * Wrow:(pos + 1) * Wrow],

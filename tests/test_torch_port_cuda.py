@@ -1137,3 +1137,184 @@ def test_tracing_changes_no_card_result(dev):
         tol = max(float((a - b).abs().max())
                   for a, b in itertools.combinations(us, 2))
         assert min(float((g - u).abs().max()) for u in us) <= tol
+
+
+# ------------------------------------------------------------ row gathers
+
+# The gradient cell's tables: the light's intensity, the constant material
+# stacks (3 materials), the material flag rows, the face rows.
+GATHER_TABLES = ((1, 3), (3, 3), (3, 12), (15752, 34))
+
+
+@pytest.fixture(scope="module")
+def hit_ids(dev):
+    """Triangle ids of a 256x256 primary pass over a 15,752-triangle scene
+    (the gradient cell's sphere, floor and light), pixel centres, in
+    render.swizzle_order: 65,536 lanes as the renderer gathers them."""
+    from redner_tpu_torch.camera import sample_primary_rays
+    from redner_tpu_torch.render import _swizzle_tensors
+
+    scene = _scene(dev, theta=64, phi=128, res=(256, 256))
+    fs = rtt.flatten_scene(scene)
+    assert fs.num_triangles == 15752
+    order, _ = _swizzle_tensors(256, 256, dev)
+    with torch.no_grad():
+        ray, _ = sample_primary_rays(
+            scene.camera, torch.full((65536, 2), 0.5, device=dev),
+            pixel_order=order)
+        tri = accel.intersect(fs, ray, presorted=True).tri_id
+    assert bool((tri >= 0).any()) and bool((tri < 0).any())
+    return tri, fs.face_material_id[tri.clamp(0, 15751)]
+
+
+def _gather_ids(kind, rows, hit_ids, dev):
+    """65,536 ids for a table of `rows` rows: all equal, the hit record's
+    (triangle ids for the face table, their material ids for the others;
+    misses are -1), or uniform over [-2, rows + 2) (out of range clamps)."""
+    if kind == "equal":
+        return torch.full((65536,), rows // 2, dtype=torch.int64, device=dev)
+    if kind == "hits":
+        return hit_ids[0] if rows > 3 else hit_ids[1]
+    g = torch.Generator(device=dev).manual_seed(rows)
+    return torch.randint(-2, rows + 2, (65536,), generator=g, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["equal", "hits", "random"])
+@pytest.mark.parametrize("rows,cols", GATHER_TABLES)
+def test_row_gather_kernels_match_plain(dev, hit_ids, rows, cols, kind):
+    """At the gradient cell's shapes the gather equals table[clamp(idx)]
+    bit for bit, and the scatter equals the float64 plain sum within 1e-5
+    of its largest value (float32 sums taken in another order than the
+    plain version's: the warps' trees, the blocks' and levels' partials);
+    the launch counter shows the variant the table's size picks, and a
+    second run gives the same bits."""
+    from redner_tpu_torch.ops import gather_cuda as gc
+
+    idx = _gather_ids(kind, rows, hit_ids, dev)
+    g = torch.Generator(device=dev).manual_seed(cols)
+    table = torch.randn((rows, cols), generator=g, device=dev)
+    src = torch.randn((65536, cols), generator=g, device=dev)
+    src[::7] = 0.0  # masked lanes send zeros
+    gc.reset_launch_counts()
+    out = gc.gather_kernel(table, idx)
+    assert torch.equal(out, gc.gather_plain(table, idx))
+    got = gc.scatter_kernel(src, idx, rows)
+    torch.cuda.synchronize()
+    want = gc.scatter_plain(src.double(), idx, rows)
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    variant = gc.scatter_variant(rows, cols, 4)
+    assert gc.LAUNCHES == {"gather_rows": 1, "scatter_rows.block": 0,
+                           "scatter_rows.warp": 0,
+                           "scatter_rows." + variant: 1}
+    assert torch.equal(gc.scatter_kernel(src, idx, rows), got)
+
+
+def _warp_updates(n, cols):
+    """The warp variant's writes when every id is equal: one row of cols
+    values a tile at every level."""
+    from redner_tpu_torch.ops import gather_cuda as gc
+
+    total = 0
+    while n:
+        total += -(-n // 32) * cols
+        n = gc.next_level(n)
+    return total
+
+
+@pytest.mark.cuda
+def test_row_scatter_counts_its_merges(dev):
+    """With tracing on the scatters add their lane-columns and updates on
+    the device: every id equal, the warp variant writes one row a tile at
+    each level, and the block variant one table a block."""
+    from redner_tpu_torch import timing
+    from redner_tpu_torch.ops import gather_cuda as gc
+
+    idx = torch.full((65536,), 5, dtype=torch.int64, device=dev)
+    src = torch.rand((65536, 34), device=dev) + 0.5
+    timing.set_tracing(True)
+    try:
+        gc.scatter_kernel(src, idx, 15752)  # makes the counters
+        gc.reset_work_counts()
+        gc.scatter_kernel(src, idx, 15752)
+        warp = gc.work_counts()
+        gc.reset_work_counts()
+        gc.scatter_kernel(src[:, :3], idx, 8)
+        block = gc.work_counts()
+    finally:
+        timing.set_tracing(False)
+        gc.reset_work_counts()
+    assert warp == (65536 * 34, _warp_updates(65536, 34))
+    blocks, _ = gc.block_grid(
+        65536, 8 * 3 * 4,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert block == (65536 * 3, blocks * 8 * 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 3), (15752, 34)])
+def test_row_gather_replays_in_a_cuda_graph(dev, hit_ids, rows, cols):
+    """A captured gather and its backward (both variants) replay on new
+    ids and upstream weights written into the static inputs, bit for bit
+    as the eager calls compute them."""
+    from redner_tpu_torch.ops import gather_cuda as gc
+
+    table = torch.randn((rows, cols), device=dev, requires_grad=True)
+    idx = _gather_ids("hits", rows, hit_ids, dev).clone()
+    w = torch.randn((65536, cols), device=dev)
+
+    def body():
+        out = gc.gather_rows(table, idx)
+        (grad,) = torch.autograd.grad((out * w).sum(), table)
+        return out.detach(), grad
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()  # the library's build and load, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = body()
+    for seed in (1, 2):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        idx.copy_(torch.randint(-1, rows + 1, (65536,), generator=g,
+                                device=dev))
+        w.copy_(torch.randn((65536, cols), generator=g, device=dev))
+        graph.replay()
+        out, grad = body()
+        assert torch.equal(static[0], out)
+        assert torch.equal(static[1], grad)
+
+
+@pytest.mark.cuda
+def test_row_gather_second_derivatives_on_the_card(dev):
+    """gradcheck and gradgradcheck through the kernels in float64, on both
+    variants, ids out of range included."""
+    from redner_tpu_torch.ops import gather_cuda as gc
+
+    idx = torch.tensor([[0, 3, 3, -1], [7, 2, 2, 2]], device=dev)
+    for rows, cols in ((4, 3), (64, 16)):
+        t = torch.randn((rows, cols), dtype=torch.float64, device=dev,
+                        requires_grad=True)
+        fn = lambda x: gc.gather_rows(x, idx) ** 2  # noqa: E731
+        assert torch.autograd.gradcheck(fn, (t,))
+        assert torch.autograd.gradgradcheck(fn, (t,))
+
+
+@pytest.mark.cuda
+def test_render_gradient_scatters_through_the_kernels(dev):
+    """An eager render gradient on the card launches both scatter variants
+    (material and light tables; face rows) and no plain gather."""
+    from redner_tpu_torch.ops import gather_cuda as gc
+
+    opts = rtt.RenderOptions(num_samples=2, max_bounces=1)
+    scene = _scene(dev, res=(32, 32))
+    gc.reset_launch_counts()
+    with graphs.disable():
+        _leaf_grads(lambda s, sd: rtt.render(s, opts, seed=sd), scene, 5,
+                    np.ones((32, 32, 3), np.float32))
+    assert gc.LAUNCHES["gather_rows"] > 0
+    assert gc.LAUNCHES["scatter_rows.block"] > 0
+    assert gc.LAUNCHES["scatter_rows.warp"] > 0

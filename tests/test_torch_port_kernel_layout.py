@@ -179,6 +179,41 @@ def test_mask_in_blocks_equals_one_block(monkeypatch, tiles):
     assert torch.equal(blocks.count, one.count)
 
 
+def test_mask_slab_sides_equal_both_sides_min_max():
+    """The activity mask computes each slab's entry and exit side alone; its
+    mask equals the one from min/max of both sides' distances, on rays
+    along the axes (one-signed, zero and tiny directions), from origins on
+    the boxes' faces and inside them, and on random rays."""
+    g = torch.Generator().manual_seed(7)
+    lo = torch.rand((20, 3), generator=g) * 4 - 2
+    hi = lo + torch.rand((20, 3), generator=g) * torch.tensor([1.0, 0.0, 2.0])
+    axes = torch.eye(3).repeat_interleave(8, 0) * torch.tensor(
+        [1.0, -1.0, 1e-21, -1e-21, 0.0, -0.0, 3.0, -3.0]).repeat(3)[:, None]
+    d = torch.cat([axes, torch.randn((232, 3), generator=g)])
+    box = torch.arange(256) % 20
+    org = torch.randn((256, 3), generator=g) * 3
+    org[:48] = lo[box[:48]]
+    org[48:96] = hi[box[48:96]]
+    org[96:128] = 0.5 * (lo + hi)[box[96:128]]
+    live = torch.ones(256, dtype=torch.bool)
+    live[::17] = False
+    tmin = torch.full((256,), 1e-3)
+    tmax = torch.where(torch.arange(256) % 3 == 0, torch.inf,
+                       torch.rand(256, generator=g) * 6)
+    got = ic._tile_chunk_mask(org, d, tmin, tmax, live, 256, lo, hi, tile=1)
+
+    small = torch.where(d >= 0, 1e-20, -1e-20)
+    inv = 1.0 / torch.where(live[:, None] & (d.abs() > 1e-20), d, small)
+    t0 = (lo[None] - org[:, None]) * inv[:, None]
+    t1 = (hi[None] - org[:, None]) * inv[:, None]
+    near = torch.minimum(t0, t1).amax(-1)
+    far = torch.maximum(t0, t1).amin(-1)
+    want = ((far >= near) & (far >= tmin[:, None]) & (near <= tmax[:, None])
+            & live[:, None])
+    assert bool(want.any()) and not bool(want.all())
+    assert torch.equal(got, want)
+
+
 def test_unbalanced_and_tie_batches():
     """The card tests' batches have the work lists they claim, and the
     plain versions give the tie to the lower sorted index."""
