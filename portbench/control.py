@@ -11,12 +11,14 @@ many seeds in one process.  Not run by the benchmark's own runs.
              rounded to TF32: the step below the float32 with TF32 off
              that the configuration states
   fault:*    a run of the cell with a fault planted under the harness
-             (FAULTS)
+             (FAULTS; the edge faults where the cell's traffic turns the
+             sampler on, `applies`)
 
 Prints one JSON line per seed with every number read.
 """
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -26,7 +28,28 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-FAULTS = ("frozen_state", "half_samples", "altered_answer", "stale_replay")
+FAULTS = ("frozen_state", "half_samples", "altered_answer", "stale_replay",
+          "no_primary_edge", "no_secondary_edge", "half_edges",
+          "flipped_edges")
+# The edge faults scale the port's edge surrogates where they are made:
+# the primary one in render_grad's backward, the secondary one at each
+# bounce of the re-render (redner_tpu_torch.render._secondary_edge_term).
+EDGE_FAULTS = {"no_primary_edge": (0.0, 1.0), "no_secondary_edge": (1.0, 0.0),
+               "half_edges": (0.5, 0.5), "flipped_edges": (-1.0, -1.0)}
+
+
+def applies(fault, traffic):
+    """Whether `fault` is one the traffic's cell can have: an edge fault
+    needs the sampler it breaks turned on."""
+    if fault not in EDGE_FAULTS:
+        return True
+    prim, sec = EDGE_FAULTS[fault]
+    return ((prim != 1.0 and traffic.get("primary_edge", False))
+            or (sec != 1.0 and traffic.get("secondary_edge", False)))
+
+
+def _scaled(f, by):
+    return lambda *a, **k: by * f(*a, **k)
 
 
 def _half_samples(opts):
@@ -95,17 +118,32 @@ def _stale_entry(f, scene_tensors, scene_with_tensors):
 def plant(fault, rtt, torch, kind, device="cuda"):
     """Plant `fault` in the entry point that the window of a `kind` loop
     drives (`render` for "grad", `render_image` for "frame"), in its
-    training step, or in the graph cache under them; returns an undo."""
+    training step, in the graph cache under them, or in the edge
+    surrogates of its backward; returns an undo."""
     from redner_tpu_torch import graphs
     from redner_tpu_torch.scene import scene_tensors, scene_with_tensors
+
+    # The modules, which the package's functions of the same name hide.
+    render_mod = importlib.import_module("redner_tpu_torch.render")
+    render_grad = importlib.import_module("redner_tpu_torch.render_grad")
 
     entry = "render" if kind == "grad" else "render_image"
     f = getattr(rtt, entry)
     saved = [(rtt, entry, f), (torch.optim.Adam, "step",
                                torch.optim.Adam.step),
              (graphs.Program, "forward", graphs.Program.forward),
-             (graphs.Program, "backward", graphs.Program.backward)]
-    if fault == "frozen_state":  # the step returns its state unchanged
+             (graphs.Program, "backward", graphs.Program.backward),
+             (render_grad, "primary_edge_gradients",
+              render_grad.primary_edge_gradients),
+             (render_mod, "_secondary_edge_term",
+              render_mod._secondary_edge_term)]
+    if fault in EDGE_FAULTS:
+        prim, sec = EDGE_FAULTS[fault]
+        render_grad.primary_edge_gradients = _scaled(
+            render_grad.primary_edge_gradients, prim)
+        render_mod._secondary_edge_term = _scaled(
+            render_mod._secondary_edge_term, sec)
+    elif fault == "frozen_state":  # the step returns its state unchanged
         if kind == "grad":
             torch.optim.Adam.step = lambda self, closure=None: None
         else:
@@ -160,8 +198,8 @@ def readings(root, workload, seed, side, seconds, device="cuda"):
     dev = torch.device(device)
     if traffic["kind"] == "grad":
         prog = check.grad_readings(cfg, traffic, seed, dev, mode="tf32")
-        return check.compare_grad(prog, check.grad_readings(cfg, traffic,
-                                                            seed, dev))
+        return check.compare_grad(prog, check.grad_readings(
+            cfg, traffic, seed, dev, states=prog.get("states")))
     ks = loops.checked_frames(traffic, seed, traffic["warm_frames"])
     prog = check.frame_reference(cfg, traffic, seed, ks, dev, mode="tf32")
     return check.compare_frames(prog, check.frame_reference(

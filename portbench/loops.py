@@ -105,14 +105,20 @@ def make_grad(rtt, cfg, traffic, seed, device, spans):
 
     p0 = [t.detach().clone() for t in params]
     beta1 = adam["betas"][0]
-    losses, grad_norms = [], None
+    losses, grad_norms, grad_vectors, states = [], None, None, []
     for k in range(traffic["checked_steps"]):
         losses.append(step(k))
         note(f"checked step {k}")
         if k == 0:  # the first gradient, as Adam's first moment holds it
-            grad_norms = [float(torch.linalg.vector_norm(
-                opt.state[p]["exp_avg"] / (1 - beta1)))
-                if "exp_avg" in opt.state[p] else 0.0 for p in params]
+            first = [opt.state[p]["exp_avg"] / (1 - beta1)
+                     if "exp_avg" in opt.state[p] else None for p in params]
+            grad_norms = [0.0 if g is None else
+                          float(torch.linalg.vector_norm(g)) for g in first]
+            grad_vectors = [torch.zeros(p.shape) if g is None else g.cpu()
+                            for p, g in zip(params, first)]
+            del first
+        if k + 1 < traffic["checked_steps"]:  # where the next step renders
+            states.append([p.detach().cpu().clone() for p in params])
     change_norms = [float(torch.linalg.vector_norm(p.detach() - q))
                     for p, q in zip(params, p0)]
     del p0
@@ -124,6 +130,7 @@ def make_grad(rtt, cfg, traffic, seed, device, spans):
         names=[n for n, _ in leaves], leaves=leaves, scene=scene, opts=opts,
         target=target, opt=opt, params=params,
         check={"losses": losses, "images": images, "grad_norms": grad_norms,
+               "grad_vectors": grad_vectors, "states": states,
                "change_norms": change_norms})
 
 

@@ -13,7 +13,7 @@ BSDF sampling joined by the power heuristic, and `max_bounces` bounces.
 Every ray query is a brute-force Moller-Trumbore test of each ray against
 every triangle.  Its gradients are torch autograd through this code: the
 continuous (interior) gradients, which is what the port's `render` returns
-with both edge samplers off.  Edge terms are not modelled.
+with both edge samplers off.  The edge terms are edges.py's.
 
 Random numbers follow the renderer's stated stream: u(seed, pixel,
 sample, dim) is the first, second, third or fourth output of the PCG4D
@@ -418,19 +418,29 @@ def _phong_exponent(r):
     return torch.clamp_min(2.0 / r - 2.0, 0.0)
 
 
+def _rational_g1(a):
+    return (3.535 * a + 2.181 * a * a) / (1.0 + 2.276 * a + 2.577 * a * a)
+
+
 def _smith_g1(w, n, r):
     """Walter et al.'s rational approximation of Smith's G1 for a
-    Beckmann-like lobe of roughness r; 1 where a = 1/(sqrt(r) tan) >= 1.6."""
-    c2 = _dot(w, n) ** 2
+    Beckmann-like lobe of roughness r; 1 where a = 1/(sqrt(r) tan) >= 1.6.
+    At grazing (cos^2 <= 1e-12, where 1/cos^2 - 1 loses the 1) a is
+    |cos| / sqrt(r) to float precision, and G1 falls to 0 with it, as the
+    published formula does; it is never 1 there."""
+    c = _dot(w, n)
+    c2 = c ** 2
     tan = _sqrt0(torch.where(c2 > 1e-12, 1.0 / torch.where(c2 > 1e-12, c2,
                                                            1.0) - 1.0, 0.0))
     den = _sqrt0(r) * tan
     big = den > 1e-12
     a = torch.where(big, 1.0 / torch.where(big, den, 1.0), 1e12)
     a = torch.clamp_max(a, 1.6)
-    g = (3.535 * a + 2.181 * a * a) / (1.0 + 2.276 * a + 2.577 * a * a)
+    g = _rational_g1(a)
     one = (tan == 0) | ~big | (1.0 / den.clamp_min(1e-12) >= 1.6)
-    return torch.where(one, 1.0, g)
+    a_graze = torch.clamp_max(c.abs() / _sqrt0(r).clamp_min(1e-30), 1.6)
+    g_graze = torch.where(a_graze >= 1.6, 1.0, _rational_g1(a_graze))
+    return torch.where(c2 <= 1e-12, g_graze, torch.where(one, 1.0, g))
 
 
 def _oriented_ng(h):
@@ -598,11 +608,18 @@ def _mis(a, b):
 
 def trace(scene, fl, lights, seed, pixel, sample, max_bounces):
     """(lanes, 3) radiance of one path per (pixel, sample) lane."""
+    org, d = camera_rays(scene.camera, pixel,
+                         uniforms(seed, pixel, sample, 0, 2))
+    return trace_rays(scene, fl, lights, seed, pixel, sample, max_bounces,
+                      org, d)
+
+
+def trace_rays(scene, fl, lights, seed, pixel, sample, max_bounces, org, d):
+    """(lanes, 3) radiance of paths that start with the rays (org, d),
+    their random numbers keyed by (seed, pixel, sample) from dim 2 on."""
     n = pixel.shape[0]
     dev = pixel.device
     out = torch.zeros((n, 3), device=dev)
-    org, d = camera_rays(scene.camera, pixel,
-                         uniforms(seed, pixel, sample, 0, 2))
     tri = closest_hit(fl, org.detach(), d.detach(),
                       torch.zeros(n, device=dev),
                       torch.full((n,), math.inf, device=dev))

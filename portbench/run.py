@@ -159,7 +159,8 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     if traffic["kind"] == "grad":
-        refr = check.grad_readings(cfg, traffic, seed, dev)
+        refr = check.grad_readings(cfg, traffic, seed, dev,
+                                   states=prog_check["states"])
         numbers = check.compare_grad(prog_check, refr)
         if any(x != x for x in prog_check["losses"]):
             result["failed"] = 1
