@@ -184,9 +184,12 @@ def readings(root, workload, seed, side, seconds, device="cuda"):
     from portbench import loops, run
     from portbench.reference import check
 
+    cell = next(w for w in run.load_bench(root)["workloads"]
+                if w["name"] == workload)
+    traffic = run._json(root, "traffic", cell["traffic"])
     if side != "control":
-        undo = (plant(side.split(":", 1)[1], rtt, torch,
-                      _traffic(root, workload)[1]["kind"], device)
+        undo = (plant(side.split(":", 1)[1], rtt, torch, traffic["kind"],
+                      device)
                 if side.startswith("fault:") else (lambda: None))
         try:
             numbers = run.run_cell(root, workload, seed, seconds, 0,
@@ -194,26 +197,18 @@ def readings(root, workload, seed, side, seconds, device="cuda"):
         finally:
             undo()
         return numbers
-    cfg, traffic = _traffic(root, workload)
+    cfg, conf = run.load_config(root, cell["config"])
     dev = torch.device(device)
     if traffic["kind"] == "grad":
-        prog = check.grad_readings(cfg, traffic, seed, dev, mode="tf32")
+        prog = check.grad_readings(cfg, conf, traffic, seed, dev,
+                                   mode="tf32")
         return check.compare_grad(prog, check.grad_readings(
-            cfg, traffic, seed, dev, states=prog.get("states")))
+            cfg, conf, traffic, seed, dev, states=prog.get("states")))
     ks = loops.checked_frames(traffic, seed, traffic["warm_frames"])
-    prog = check.frame_reference(cfg, traffic, seed, ks, dev, mode="tf32")
+    prog = check.frame_reference(cfg, conf, traffic, seed, ks, dev,
+                                 mode="tf32")
     return check.compare_frames(prog, check.frame_reference(
-        cfg, traffic, seed, ks, dev))
-
-
-def _traffic(root, workload):
-    from portbench.run import _json, load_bench
-
-    bench = load_bench(root)
-    cell = next(w for w in bench["workloads"] if w["name"] == workload)
-    conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    cfg = json.loads((Path(root) / conf["file"]).read_text())
-    return cfg, _json(root, "traffic", cell["traffic"])
+        cfg, conf, traffic, seed, ks, dev))
 
 
 def main(argv=None):

@@ -12,7 +12,9 @@ A loop is built in set-up (`make_grad` / `make_frame`), runs its checked
 and warm-up calls there, and is then handed to the window as it stands.
 What the check needs from those first calls is kept in `loop.check`.
 The port is reached only through its user API (`rtt.render`,
-`rtt.render_image` and the scene constructors).
+`rtt.render_image` and the scene constructors).  The scene, its leaves
+and their start come from the configuration's module (`conf`,
+run.load_config).
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
-
-from portbench.scenes import apply_start, build_scene, perturbed, posed
 
 TARGET_SEED_OFFSET = 1_000_003  # the target's render seed, past the steps'
 T0 = time.perf_counter()  # the origin of note(); run.py sets its own
@@ -57,6 +57,33 @@ class Spans:
             self.log.append((name, t0, time.perf_counter()))
 
 
+def apply_start(scene, start, leaves, device):
+    """Move the scene's leaves to the start and make them require grad;
+    returns [(name, tensor)] in the start's order.  leaves: where each
+    leaf lives in the scene (a configuration's LEAVES or
+    REFERENCE_LEAVES); a leaf that lives outside it (None) is a new
+    tensor set to its start."""
+    out = []
+    with torch.no_grad():
+        for name, (how, value) in start.items():
+            value = torch.as_tensor(np.asarray(value, np.float32),
+                                    device=device)
+            if leaves[name] is None:
+                out.append((name, value.clone()))
+                continue
+            t = leaves[name](scene)
+            if how == "shift":
+                t.add_(value)
+            elif how == "scale":
+                t.mul_(value)
+            else:
+                t.copy_(value.reshape(t.shape))
+            out.append((name, t))
+    for _, t in out:
+        t.requires_grad_(True)
+    return out
+
+
 def render_options(rtt, traffic):
     return rtt.RenderOptions(
         num_samples=traffic["num_samples"],
@@ -65,23 +92,24 @@ def render_options(rtt, traffic):
         use_secondary_edge_sampling=traffic.get("secondary_edge", False))
 
 
-def render_target(rtt, cfg, traffic, seed, device):
+def render_target(rtt, cfg, conf, traffic, seed, device):
     """The target image of a gradient loop: the configuration's scene at
     its own values, rendered without gradient."""
-    scene = build_scene(rtt, cfg, traffic["resolution"], device)
+    scene = conf.build_scene(rtt, cfg, traffic["resolution"], device)
     with torch.no_grad():
         return rtt.render_image(scene, render_options(rtt, traffic),
                                 seed=seed + TARGET_SEED_OFFSET)
 
 
-def make_grad(rtt, cfg, traffic, seed, device, spans):
+def make_grad(rtt, cfg, conf, traffic, seed, device, spans):
     """The gradient loop of `traffic` on the port, through its checked and
     warm-up steps.  loop.step(k) runs step k and returns its loss."""
     opts = render_options(rtt, traffic)
-    target = render_target(rtt, cfg, traffic, seed, device)
+    target = render_target(rtt, cfg, conf, traffic, seed, device)
     note("target rendered")
-    scene = build_scene(rtt, cfg, traffic["resolution"], device)
-    leaves = apply_start(scene, perturbed(traffic, seed))
+    scene = conf.build_scene(rtt, cfg, traffic["resolution"], device)
+    leaves = apply_start(scene, conf.perturbed(traffic, seed), conf.LEAVES,
+                         device)
     params = [t for _, t in leaves]
     adam = traffic["adam"]
     opt = torch.optim.Adam(params, lr=adam["lr"], betas=tuple(adam["betas"]),
@@ -91,7 +119,7 @@ def make_grad(rtt, cfg, traffic, seed, device, spans):
 
     def step(k):
         with spans("render"):
-            img = rtt.render(posed(scene, leaves), opts, seed=seed + k)
+            img = rtt.render(conf.posed(scene, leaves), opts, seed=seed + k)
         if k < traffic["checked_steps"]:
             images.append(img.detach().cpu())
         loss = torch.mean((img - target) ** 2)
@@ -156,11 +184,11 @@ def checked_frames(traffic, seed, first):
 MAX_FRAMES = 20000
 
 
-def make_frame(rtt, cfg, traffic, seed, device, spans):
+def make_frame(rtt, cfg, conf, traffic, seed, device, spans):
     """The frame loop of `traffic` on the port, through its warm-up
     frames.  loop.step(k) renders frame k and returns its host image."""
     opts = render_options(rtt, traffic)
-    scene = build_scene(rtt, cfg, traffic["resolution"], device)
+    scene = conf.build_scene(rtt, cfg, traffic["resolution"], device)
     table = torch.as_tensor(orbit_positions(cfg, traffic, seed, MAX_FRAMES),
                             device=device)
     position = scene.camera.position

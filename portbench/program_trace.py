@@ -4,28 +4,26 @@ replays count (redner_tpu_torch.timing, ops/intersect_cuda.WORK), for the
 per-layer readers that split a step or a frame by phase.
 
 `context(ctx)` builds them once per run, after every reader that was
-there before has read: a loop made like the run's (the cell and seed of
-the run's own arguments, the port's keys already captured, so its set-up
-replays), then `program_stretch`.  A port without tracing (no
-`timing.set_tracing`) gives None, and so does a run without a card.
+there before has read: a second loop made by the run's own
+`ctx.make_loop` (the run's cell, configuration and seed, the port's keys
+already captured, so its set-up replays), then `program_stretch`.  A
+port without tracing (no `timing.set_tracing`) gives None, and so does a
+run without a card.
 """
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import io
 import json
 import sys
 import traceback
-from pathlib import Path
 
 import torch
 
 from portbench import trace as tr
 from portbench import yardstick as ys
 
-ROOT = Path(__file__).resolve().parent.parent
 GATHER_BWD = ("indexing_backward_kernel", "indexFuncLargeIndex",
               "indexFuncSmallIndex")
 
@@ -149,45 +147,21 @@ def name_gaps(gaps, recs, harness, top=10):
     return [[nm, s] for nm, s in out[:top]]
 
 
-def _run_args(argv):
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--workload")
-    ap.add_argument("--seed", type=int)
-    args, _ = ap.parse_known_args(argv)
-    return args
-
-
-def traced_run(argv=None, device="cuda"):
-    """program_stretch on a loop of the cell and seed that `argv` (the
-    run's own arguments) name, built as loops.py builds the run's; its
-    set-up notes are kept off standard error."""
+def traced_run(ctx):
+    """program_stretch, over ctx.profiled calls on ctx.device, on a loop
+    that the run's own ctx.make_loop(spans) builds (the run's cell,
+    configuration and seed); its set-up notes are kept off standard
+    error."""
     import redner_tpu_torch as rtt
 
     from portbench import loops
 
     if not hasattr(getattr(rtt, "timing", None), "set_tracing"):
         return None
-    args = _run_args(sys.argv[1:] if argv is None else argv)
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cell = next((w for w in bench["workloads"]
-                 if w["name"] == args.workload), None)
-    if cell is None or args.seed is None:
-        raise ValueError(
-            "the traced stretch builds its loop from the run's own "
-            "--workload and --seed, and the arguments "
-            f"{sys.argv[1:] if argv is None else argv} name no cell of "
-            "BENCHMARK.json and a seed")
-    conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    cfg = json.loads((ROOT / conf["file"]).read_text())
-    traffic = json.loads((ROOT / "portbench" / "traffic" /
-                          f"{cell['traffic']}.json").read_text())
-    dev = torch.device(device)
+    n, dev, make_loop = ctx.profiled, ctx.device, ctx.make_loop
     spans = loops.Spans(False)
     with contextlib.redirect_stderr(io.StringIO()):
-        loop = loops.MAKERS[traffic["kind"]](rtt, cfg, traffic, args.seed,
-                                             dev, spans)
-    n = traffic["profiled_steps" if loop.kind == "grad" else
-                "profiled_frames"]
+        loop = make_loop(spans)
     return program_stretch(rtt, loop, n, spans, dev)
 
 
@@ -208,7 +182,7 @@ def context(ctx):
     if first is not None:
         ctx.first_run_s = sum(first.values())
     try:
-        ctx.program = traced_run()
+        ctx.program = traced_run(ctx)
     except Exception:  # noqa: BLE001 - the other readers still read
         print("[program] the traced stretch failed:\n"
               + traceback.format_exc(), file=sys.stderr)

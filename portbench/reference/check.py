@@ -2,13 +2,16 @@
 of a cell, worked out again from the seed, and the numbers that hold the
 port's readings against them.
 
-Gradient cells (traffic kind "grad"): the reference builds the scene,
-renders the target and follows the loop's first checked_steps steps with
-its own Adam; compared are every step's image, each leaf's first
-gradient and each leaf's change after those steps.  Where the traffic
-turns edge samplers on, edges.py's terms join each step's gradient.
-Frame cells (kind "frame"): the reference renders the frames that the
-check drew from the seed, at the same camera positions and seeds.
+The scene, its leaves, the render and the edge terms of the reference
+are the configuration's (`conf`, run.load_config).  Gradient cells
+(traffic kind "grad"): the reference builds the scene, renders the
+target and follows the loop's first checked_steps steps with its own
+Adam; compared are every step's image, each leaf's first gradient and
+each leaf's change after those steps.  Where the traffic turns edge
+samplers on, the configuration's edge terms (edges.py's) join each
+step's gradient.  Frame cells (kind "frame"): the reference renders the
+frames that the check drew from the seed, at the same camera positions
+and seeds.
 
 mode "tf32" runs the reference as the control: the operands of its
 ray-triangle products rounded to TF32, the step below the float32 with
@@ -22,10 +25,8 @@ import statistics
 
 import torch
 
-from portbench.loops import TARGET_SEED_OFFSET, orbit_positions
-from portbench.reference import edges, plain
-from portbench.scenes import (PLAIN_LEAVES, apply_start, build_plain,
-                              perturbed, posed_plain)
+from portbench.loops import TARGET_SEED_OFFSET, apply_start, orbit_positions
+from portbench.reference import plain
 
 # A leaf whose reference gradient is under this share of the median leaf's
 # moves under Adam by round-off alone: its change is not compared.
@@ -42,9 +43,9 @@ def precision(mode):
         plain.PRECISION["mode"] = saved
 
 
-def _render(scene, traffic, seed):
-    return plain.render(scene, traffic["num_samples"], seed,
-                        traffic["max_bounces"])
+def _render(conf, scene, traffic, seed):
+    return conf.render_reference(scene, traffic["num_samples"], seed,
+                                 traffic["max_bounces"])
 
 
 def _adam(params, grads, m, v, t, adam):
@@ -58,17 +59,22 @@ def _adam(params, grads, m, v, t, adam):
             p.addcdiv_(mi, denom, value=-adam["lr"] / (1 - b1 ** t))
 
 
-def edge_samplers(traffic):
+def edge_samplers(traffic, conf):
     """(primary, secondary): the edge samplers that the traffic turns on.
     Raises where it turns on one whose terms the reference does not
-    model, so that an edge-sampled gradient is never compared with an
-    interior one."""
+    model, or any where the configuration's reference has no edge terms
+    (conf.EDGES None), so that an edge-sampled gradient is never compared
+    with an interior one."""
     known = {"primary_edge", "secondary_edge"}
     other = sorted(k for k in traffic if "edge" in k and k not in known)
     if other:
         raise NotImplementedError(f"edge options {other} are not modelled")
     prim = bool(traffic.get("primary_edge", False))
     sec = bool(traffic.get("secondary_edge", False))
+    if (prim or sec) and conf.EDGES is None:
+        raise NotImplementedError(
+            f"the reference of {conf.__name__} has no edge terms (EDGES "
+            "is None), and the traffic turns an edge sampler on")
     if sec and traffic["max_bounces"] != 1:
         raise NotImplementedError(
             "secondary edges are modelled for direct lighting only "
@@ -76,12 +82,13 @@ def edge_samplers(traffic):
     return prim, sec
 
 
-def grad_readings(cfg, traffic, seed, device, mode="fp32", states=None):
+def grad_readings(cfg, conf, traffic, seed, device, mode="fp32",
+                  states=None):
     """The reference's losses and images of the first checked_steps steps,
     each leaf's first gradient (its norm and, where edge terms reach it,
-    the vector) and each leaf's change norm after those steps.  edges.py's
-    terms of the samplers that the traffic turns on join each step's
-    interior gradient (none where both are off).
+    the vector) and each leaf's change norm after those steps.  The
+    configuration's edge terms of the samplers that the traffic turns on
+    join each step's interior gradient (none where both are off).
 
     With an edge sampler on, the edge terms are independent samples of the
     program's, and Adam's first step moves each element by lr times its
@@ -91,17 +98,18 @@ def grad_readings(cfg, traffic, seed, device, mode="fp32", states=None):
     leaves, and the reference's own Adam follows its own gradients there
     for the change.  Returned as `states`: the leaves the reference's Adam
     reached."""
-    prim, sec = edge_samplers(traffic)
+    prim, sec = edge_samplers(traffic, conf)
     follow = states is not None and (prim or sec)
     res = traffic["resolution"]
     spp, bounces = traffic["num_samples"], traffic["max_bounces"]
     with precision(mode):
         with torch.no_grad():
-            target = _render(build_plain(cfg, res, device), traffic,
-                             seed + TARGET_SEED_OFFSET)
-        scene = build_plain(cfg, res, device)
-        topo = edges.topology(scene) if prim or sec else None
-        leaves = apply_start(scene, perturbed(traffic, seed), PLAIN_LEAVES)
+            target = _render(conf, conf.build_reference(cfg, res, device),
+                             traffic, seed + TARGET_SEED_OFFSET)
+        scene = conf.build_reference(cfg, res, device)
+        topo = conf.EDGES.topology(scene) if prim or sec else None
+        leaves = apply_start(scene, conf.perturbed(traffic, seed),
+                             conf.REFERENCE_LEAVES, device)
         params = [t for _, t in leaves]
         p0 = [p.detach().clone() for p in params]
         own = [p.detach().clone() for p in params]
@@ -116,15 +124,18 @@ def grad_readings(cfg, traffic, seed, device, mode="fp32", states=None):
                     torch.as_tensor(s, device=device) for s in states[k - 1]]
                 for p, a in zip(params, at):
                     p.copy_(a)
-            posed = posed_plain(scene, leaves)
-            img = _render(posed, traffic, seed + k)
+            posed = conf.posed_reference(scene, leaves)
+            img = _render(conf, posed, traffic, seed + k)
             images.append(img.detach().cpu())
             loss = torch.mean((img - target) ** 2)
-            adj = (2.0 / img.numel()) * (img - target).detach()
-            surr = edges.surrogate(posed, adj, spp, seed + k, bounces, prim,
-                                   sec, topo)
-            g_edge = torch.autograd.grad(surr, params, allow_unused=True) \
-                if surr.requires_grad else [None] * len(params)
+            g_edge = [None] * len(params)
+            if prim or sec:
+                adj = (2.0 / img.numel()) * (img - target).detach()
+                surr = conf.EDGES.surrogate(posed, adj, spp, seed + k,
+                                            bounces, prim, sec, topo)
+                if surr.requires_grad:
+                    g_edge = torch.autograd.grad(surr, params,
+                                                 allow_unused=True)
             g_int = torch.autograd.grad(loss, params, allow_unused=True)
             grads = [(torch.zeros_like(p) if a is None else a)
                      + (0.0 if b is None else b)
@@ -204,15 +215,15 @@ def compare_grad(prog, refr):
     return out
 
 
-def frame_reference(cfg, traffic, seed, ks, device, mode="fp32"):
+def frame_reference(cfg, conf, traffic, seed, ks, device, mode="fp32"):
     """The reference's images of frames ks: {k: host image}."""
     with precision(mode), torch.no_grad():
-        scene = build_plain(cfg, traffic["resolution"], device)
+        scene = conf.build_reference(cfg, traffic["resolution"], device)
         table = orbit_positions(cfg, traffic, seed, max(ks) + 1)
         out = {}
         for k in ks:
-            scene.camera.position.copy_(torch.as_tensor(table[k]))
-            out[k] = _render(scene, traffic, seed + k).cpu()
+            conf.move_reference_camera(scene, table[k])
+            out[k] = _render(conf, scene, traffic, seed + k).cpu()
     return out
 
 

@@ -5,8 +5,10 @@
 
 From the root of a checkout.  The cell, its configuration, its traffic
 mix and its metrics are found by name: BENCHMARK.json names them, and
-each lives in a file of its own under portbench/ (configs/<config>.json,
-traffic/<traffic>.json, layer_metrics/<metric>.py, limits/<cell>.json).
+each lives in files of its own under portbench/ (configs/<config>.json
+and the module beside it, configs/<config>.py, which builds the scene of
+both sides (load_config); traffic/<traffic>.json,
+layer_metrics/<metric>.py, limits/<cell>.json).
 
 The run builds the loop in set-up (its first calls compile and capture),
 measures for --seconds, reads the per-layer metrics with --trace 1, then
@@ -62,14 +64,55 @@ def _json(root, sub, name):
                        f"{name}.json").read_text())
 
 
+def _load_module(path, prefix, name):
+    """The module at `path`, loaded by path under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def load_reader(root, name):
     """layer_metrics/<name>.py's read(ctx)."""
-    path = Path(root) / "portbench" / "layer_metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_module(Path(root) / "portbench" / "layer_metrics" /
+                        f"{name}.py", "portbench_metric_", name).read
+
+
+def load_config(root, name):
+    """Configuration `name` of BENCHMARK.json: (its sizes, the JSON file
+    that BENCHMARK.json names, and its module, configs/<name>.py).  The
+    module owns all that depends on the shape of the scene:
+
+      build_scene(api, cfg, resolution, device)  the port's scene, through
+          its user API (resolution: (height, width))
+      build_reference(cfg, resolution, device)  the reference's scene
+      LEAVES, REFERENCE_LEAVES  {leaf: where it lives in a port scene and
+          in a reference scene, as a function of the scene that returns
+          the tensor, or None for a leaf that lives outside the scene and
+          that posed / posed_reference apply}
+      perturbed(traffic, seed)  the start of each leaf the traffic names,
+          drawn from the seed: {leaf: (how, float array)}, how "set",
+          "shift" or "scale" (loops.apply_start)
+      posed(scene, leaves), posed_reference(scene, leaves)  the scene to
+          render at the leaves, [(leaf, tensor)]
+      render_reference(scene, num_samples, seed, bounces)  the reference's
+          (height, width, 3) image; run under check.precision(mode),
+          whose "tf32" rounds reference/plain.py's ray-triangle products
+      move_reference_camera(scene, position)  a frame cell's camera move
+          on the reference's scene, in place
+      EDGES  None, or the reference's edge terms: a module with
+          topology(scene) and surrogate(scene, adj, num_samples, seed,
+          bounces, primary, secondary, topology), as reference/edges.py
+      tiny(cfg)  optional: the sizes shrunk for a CPU test
+
+    Every input array is made by the module from the JSON, once for each
+    side: nothing built by one side is handed to the other."""
+    entry = next(c for c in load_bench(root)["configs"] if c["name"] == name)
+    cfg = json.loads((Path(root) / entry["file"]).read_text())
+    return cfg, _load_module(Path(root) / "portbench" / "configs" /
+                             f"{name}.py", "portbench_config_", name)
 
 
 def _applies(metric, cell, e2e_names):
@@ -92,16 +135,19 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
     loops.T0 = t_start
     bench = load_bench(root)
     cell = next(w for w in bench["workloads"] if w["name"] == workload)
-    conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    cfg = json.loads((Path(root) / conf["file"]).read_text())
+    cfg, conf = load_config(root, cell["config"])
     traffic = _json(root, "traffic", cell["traffic"])
     limits = _json(root, "limits", workload)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     loops.note("imports done")
 
+    def make_loop(spans):
+        return loops.MAKERS[traffic["kind"]](rtt, cfg, conf, traffic, seed,
+                                             dev, spans)
+
     spans = loops.Spans(False)
-    loop = loops.MAKERS[traffic["kind"]](rtt, cfg, traffic, seed, dev, spans)
+    loop = make_loop(spans)
     if on_card:
         torch.cuda.synchronize(dev)
     before = tr.graph_counters()
@@ -129,8 +175,8 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
     result = {"correct": False, "attempted": count, "failed": 0}
 
     if trace:
-        ctx = _trace_context(loop, traffic, before, after, count,
-                             window_s, spans, dev, on_card)
+        ctx = _trace_context(loop, conf, make_loop, traffic, before, after,
+                             count, window_s, spans, dev, on_card)
         metrics = {}
         for m in bench["per_layer"]:
             if not _applies(m, cell, e2e_names):
@@ -159,7 +205,7 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     if traffic["kind"] == "grad":
-        refr = check.grad_readings(cfg, traffic, seed, dev,
+        refr = check.grad_readings(cfg, conf, traffic, seed, dev,
                                    states=prog_check["states"])
         numbers = check.compare_grad(prog_check, refr)
         if any(x != x for x in prog_check["losses"]):
@@ -168,8 +214,8 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
         frames = prog_check["frames"]
         numbers = {}
         if frames:
-            refr = check.frame_reference(cfg, traffic, seed, sorted(frames),
-                                         dev)
+            refr = check.frame_reference(cfg, conf, traffic, seed,
+                                         sorted(frames), dev)
             numbers = check.compare_frames(frames, refr)
         print(f"[check] {len(frames)} of the drawn frames were rendered "
               f"in the window: {sorted(frames)}", file=sys.stderr)
@@ -191,24 +237,25 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
     return result, compared, numbers
 
 
-def _trace_context(loop, traffic, before, after, count, window_s, spans,
-                   dev, on_card):
+def _trace_context(loop, conf, make_loop, traffic, before, after, count,
+                   window_s, spans, dev, on_card):
     """What the per-layer readers read: the window's counters and its
     seconds per step or frame (untraced), a profile of a steady stretch,
-    and the work bounds of one eager call's ray queries beside their
-    kernels' time."""
+    the work bounds of one eager call's ray queries beside their kernels'
+    time, and the run's make_loop(spans) with its device, from which
+    program_trace builds the loop of its traced stretch."""
     from types import SimpleNamespace
 
     import torch
 
     import redner_tpu_torch as rtt
     from portbench import trace as tr
-    from portbench.scenes import posed
 
     ctx = SimpleNamespace(kind=traffic["kind"], window_count=count,
                           step_s=window_s / count,
                           before=before, after=after, profile=None,
-                          launches=[], span_log=[])
+                          launches=[], span_log=[], make_loop=make_loop,
+                          device=dev)
     if not on_card:
         return ctx
     n = traffic["profiled_steps" if loop.kind == "grad" else
@@ -222,7 +269,7 @@ def _trace_context(loop, traffic, before, after, count, window_s, spans,
         ctx.top_ops, ctx.idle_gaps, ctx.span_log = top, gaps, log
     if loop.kind == "grad":
         def call():
-            img = rtt.render(posed(loop.scene, loop.leaves), loop.opts,
+            img = rtt.render(conf.posed(loop.scene, loop.leaves), loop.opts,
                              seed=loop.next_k)
             torch.mean((img - loop.target) ** 2).backward()
             loop.opt.zero_grad()

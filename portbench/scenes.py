@@ -1,5 +1,6 @@
-"""Scenes of the benchmark's configurations, built from a configuration's
-JSON file.  The benchmark makes every input array itself (the UV sphere of
+"""The scene of a sphere on a floor under a quad light, built from a
+configuration's JSON file: what configs/pose_sphere15k.py hands the
+harness.  The benchmark makes every input array itself (the UV sphere of
 pyredner's `generate_sphere`, the floor and the quad light of
 `generate_quad_light`) and hands the same arrays to both sides: to the
 port through its user API (`build_scene`) and to the plain reference
@@ -7,7 +8,8 @@ port through its user API (`build_scene`) and to the plain reference
 
 Leaves are named `<part>.<field>`.  "sphere.translation" is a leaf of its
 own, a (3,) offset added to the sphere's vertices before each render (the
-pose parameters of redner's pose-estimation tutorial).
+pose parameters of redner's pose-estimation tutorial): it lives in
+neither scene (None in LEAVES and PLAIN_LEAVES), and `posed` applies it.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import math
 import numpy as np
 import torch
 
+from portbench import loops
 from portbench.reference import plain
 
 # Where each leaf lives in a port scene (redner_tpu_torch.Scene).
 LEAVES = {
+    "sphere.translation": None,
     "sphere.diffuse": lambda s: s.materials[0].diffuse_reflectance.texels,
     "sphere.specular": lambda s: s.materials[0].specular_reflectance.texels,
     "sphere.roughness": lambda s: s.materials[0].roughness.texels,
@@ -32,6 +36,7 @@ LEAVES = {
 
 # ... and in a reference scene (plain.Scene: sphere, floor, light).
 PLAIN_LEAVES = {
+    "sphere.translation": None,
     "sphere.diffuse": lambda s: s.meshes[0].diffuse,
     "sphere.specular": lambda s: s.meshes[0].specular,
     "sphere.roughness": lambda s: s.meshes[0].roughness,
@@ -173,30 +178,10 @@ def perturbed(traffic, seed):
 
 
 def apply_start(scene, start, leaves=LEAVES):
-    """Move the scene's leaves to the start and make them require grad;
-    returns [(name, tensor)] in the traffic's order.  leaves: where each
-    leaf lives (LEAVES for a port scene, PLAIN_LEAVES for a reference
-    scene)."""
-    out = []
-    dev = scene.camera.position.device
-    with torch.no_grad():
-        for name, (how, value) in start.items():
-            value = torch.as_tensor(np.asarray(value, np.float32),
-                                    device=dev)
-            if name == "sphere.translation":
-                out.append((name, value.clone()))
-                continue
-            t = leaves[name](scene)
-            if how == "shift":
-                t.add_(value)
-            elif how == "scale":
-                t.mul_(value)
-            else:
-                t.copy_(value.reshape(t.shape))
-            out.append((name, t))
-    for _, t in out:
-        t.requires_grad_(True)
-    return out
+    """loops.apply_start on the scene's own device.  leaves: LEAVES for a
+    port scene, PLAIN_LEAVES for a reference scene."""
+    return loops.apply_start(scene, start, leaves,
+                             scene.camera.position.device)
 
 
 def _translation(leaves):

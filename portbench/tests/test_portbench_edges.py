@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from portbench import run
 from portbench.reference import check, edges, plain
 from portbench.scenes import (PLAIN_LEAVES, apply_start, build_plain,
                               perturbed, posed_plain)
@@ -217,8 +218,9 @@ def _traffic(name):
 ])
 def test_unmodelled_edge_traffic_raises(change):
     traffic = dict(_traffic("grad256_noedge"), **change)
+    _, conf = run.load_config(REPO, "pose_sphere15k")
     with pytest.raises(NotImplementedError):
-        check.grad_readings({}, traffic, 1, "cpu")
+        check.grad_readings({}, conf, traffic, 1, "cpu")
 
 
 def test_noedge_reference_is_as_before():
@@ -226,13 +228,12 @@ def test_noedge_reference_is_as_before():
     bit, what plain.render gives when called as the check has called it
     since the benchmark began: target, three steps of the reference's own
     Adam, the first gradient's norms and the changes."""
-    cfg = json.loads((REPO / "portbench/configs/pose_sphere15k.json")
-                     .read_text())
+    cfg, conf = run.load_config(REPO, "pose_sphere15k")
     cfg["sphere"]["theta_steps"], cfg["sphere"]["phi_steps"] = 6, 12
     traffic = dict(_traffic("grad256_noedge"), resolution=[12, 12],
                    num_samples=2)
     seed = 2147483659
-    got = check.grad_readings(cfg, traffic, seed, "cpu")
+    got = check.grad_readings(cfg, conf, traffic, seed, "cpu")
 
     res, spp, nb = traffic["resolution"], 2, traffic["max_bounces"]
     with torch.no_grad():

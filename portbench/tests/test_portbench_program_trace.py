@@ -121,16 +121,19 @@ def test_summarise_splits_a_stretch_per_call():
     assert p["body_share"] == pytest.approx(250.0 / 350.0)
 
 
-@pytest.mark.parametrize("argv", [[], ["--seed", "5"],
-                                  ["--workload", "no.such_cell", "--seed",
-                                   "5"]],
-                         ids=["no_arguments", "no_workload", "unknown_cell"])
-def test_a_stretch_without_its_cell_says_so(argv):
-    """traced_run builds its loop from the run's --workload and --seed; a
-    run whose arguments name no cell raises an error that says so (which
-    context() prints), before it touches a card."""
-    with pytest.raises(ValueError, match="name no cell"):
-        pt.traced_run(argv, device="cpu")
+@pytest.mark.parametrize("missing", ["make_loop", "profiled", "device"])
+def test_a_stretch_without_its_cell_says_so(missing, capsys):
+    """traced_run builds its loop with the run's own make_loop, over the
+    run's profiled count on its device; where the context lacks one,
+    context() prints why the stretch failed and reads nothing, and no
+    loop is built."""
+    ctx = SimpleNamespace(kind="grad", profile=[], profiled=3,
+                          device="cpu",
+                          make_loop=lambda spans: pytest.fail("built"))
+    delattr(ctx, missing)
+    assert pt.context(ctx) is None and ctx.program is None
+    err = capsys.readouterr().err
+    assert "the traced stretch failed" in err and missing in err
 
 
 def test_report_prints_the_cache_counters(capsys):

@@ -1,12 +1,15 @@
 """A copy of the benchmark's data files at a size a CPU test run holds:
-the same cells, configurations, traffic mixes, limits and per-layer
-metrics, with small meshes, images and sample counts."""
+the same cells, configurations (their sizes shrunk by their modules'
+`tiny`), traffic mixes, limits and per-layer metrics, with small images
+and sample counts."""
 
 import json
 import shutil
 from pathlib import Path
 
 import torch
+
+from portbench import run
 
 REPO = Path(__file__).resolve().parents[2]
 SUBDIRS = ("configs", "traffic", "limits", "layer_metrics")
@@ -19,10 +22,10 @@ def tiny_root(tmp):
     for sub in SUBDIRS:
         shutil.copytree(REPO / "portbench" / sub, root / "portbench" / sub)
     shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
-    for path in (root / "portbench" / "configs").glob("*.json"):
-        c = json.loads(path.read_text())
-        c["sphere"]["theta_steps"], c["sphere"]["phi_steps"] = 6, 12
-        path.write_text(json.dumps(c))
+    for entry in run.load_bench(root)["configs"]:
+        cfg, conf = run.load_config(root, entry["name"])
+        if hasattr(conf, "tiny"):
+            (root / entry["file"]).write_text(json.dumps(conf.tiny(cfg)))
     for path in (root / "portbench" / "traffic").glob("*.json"):
         t = json.loads(path.read_text())
         t["resolution"], t["num_samples"] = [12, 12], 2
@@ -65,8 +68,6 @@ def add_edge_cell(root, name, primary_edge, secondary_edge):
 
 def run_cpu(root, workload, seconds=0.5, trace=0, seed=2147483659):
     """One run of a cell on the CPU, past the harness's look for a card."""
-    from portbench import run
-
     torch.set_num_threads(2)
     result, _, _ = run.run_cell(root, workload, seed, seconds, trace,
                              device="cpu", t_start=0.0)
