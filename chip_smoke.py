@@ -3061,8 +3061,7 @@ def host_profile(label, run, top=8):
             "minmax_entries": minmax}
 
 
-def graph_route(name, path, smi_line, tag="graph", rerenders=False,
-                host=False):
+def graph_route(name, path, smi_line, tag="graph", host=False):
     """A route graphed since the whole port is compiled (the continuous
     gradient, the screen gradient, a sharded render over NCCL), checked
     as [graph] checks the slice's gradient: its eager route under sync
@@ -3070,11 +3069,10 @@ def graph_route(name, path, smi_line, tag="graph", rerenders=False,
     first graphed call and read after the graphed-vs-eager checks
     (graph_vs_eager); the kernel nodes counted at capture and in a
     profile of one graphed run, each equal to the eager route's launches
-    (twice them with `rerenders`: render_image's graphed backward
-    re-renders the forward under autograd, where eager autograd keeps the
-    forward's residuals); the device's busy and idle share of that run;
-    both kernels against their plain versions on every batch of the eager
-    route.  One eager run gives the launches and the batches and warms
+    (render_image's graphed backward walks the forward graph's kept tape,
+    as eager autograd walks the forward's); the device's busy and idle
+    share of that run; both kernels against their plain versions on every
+    batch of the eager route.  One eager run gives the launches and the batches and warms
     the sync check; with `host`, under host_profile.  Returns the row."""
     scene, _, leaves_of, fn = path
     run = lambda: img_grads(lambda: fn(scene, SEED), leaves_of(scene))
@@ -3086,7 +3084,7 @@ def graph_route(name, path, smi_line, tag="graph", rerenders=False,
                     else eager_run())
     cap, eager = first[0]
     sync_check({name: path}, [name], warm=False)
-    want = {k: v * (2 if rerenders else 1) for k, v in eager.items()}
+    want = dict(eager)
     torch.cuda.synchronize()
     reset_launches()
     row = graph_vs_eager(name, path, smi_line, tag)
@@ -3244,7 +3242,6 @@ def phase_graph(scene, opts, smi_line):
     # gradient, each its own key and route.
     for name in ("render_image_grad", "screen_gradient"):
         rows[name] = graph_route(name, paths[name], smi_line,
-                                 rerenders=name == "render_image_grad",
                                  host=name == "screen_gradient")
         lap(f"graph: {name}")
     rows["screen_gradient"]["loop"] = screen_gradient_loop(

@@ -16,7 +16,26 @@ A Program holds one key's graphs:
     the fused secondary surrogate, the primary-edge pass and the inner
     autograd.grad), or for "render_image_grad" the same body with both
     edge samplers off at the forward's own options and seed (autograd
-    through render_image); the gradients in static buffers.
+    through render_image); the gradients in static buffers.  A key that
+    keeps its residuals (below) walks the forward graph's tape instead.
+
+A key whose backward renders exactly the forward's image (render_grad:
+correlated, the backward's sample count the forward's, no secondary
+edge, no remat, no pixel sharding) is a KeptProgram, the design of
+torch.cuda.make_graphed_callables: its forward graph runs the sample
+loop under autograd on the static tensors and keeps the tape behind its
+static image; its backward graph, captured in the forward graph's pool,
+takes autograd.grad through that tape (with the primary-edge pass where
+it is on) and loads no scene tensor.  The capture frees the tape as the
+walk goes, so the gradients reuse its blocks.  The two graphs are a
+pair: releasing either releases both, and the next call captures both
+again.  Each call's autograd ctx holds the program's forward generation
+(bumped by every forward replay and every release); a backward whose
+generation is no longer the program's (a second forward of the key
+replayed before it, as in a loop over views) runs the re-render body on
+its own saved tensors instead, in a Program of its own (the fallback:
+its own static tensors and pool, captured on its second need).  The
+eager first call of a key keeps its eager tape on its ctx.
 
 Inputs: every tensor of the scene (scene.scene_tensors: float leaves and
 integer arrays alike, so a scene of the same shapes with other indices
@@ -143,6 +162,14 @@ CAPTURES = {"forward": 0, "backward": 0}
 REPLAYS = {"forward": 0, "backward": 0}
 LAST_CAPTURE = {"forward": None, "backward": None}
 
+# Backwards of render and render_image under autograd on the graphed
+# route, by how they got their gradients: through the forward's kept
+# autograd residuals ("kept"), or by rendering again, for a key whose
+# backward's image is not the forward's ("ineligible"), a ctx whose
+# forward graph has replayed since or was released ("overwritten"), or a
+# backward that records (create_graph, run eagerly).
+BACKWARDS = {"kept": 0, "ineligible": 0, "overwritten": 0, "create_graph": 0}
+
 # Graphs released to make room; _device_free calls that emptied the
 # allocator's cache (and so waited for the card); and the seconds of each
 # key's first eager run of a graph kind, synchronised at both ends (the
@@ -220,17 +247,25 @@ def _make_room(need, keep, spare=(), eager=False):
     with timing.span("cache.make_room"):
         ask = need if eager else None
         free = _device_free(keep.device, ask)
-        held = [(p, k) for p in _cache.values()
+        held = [(p, k) for p in _programs()
                 if p is not keep and p.device == keep.device for k in KINDS]
         for prog, kind in held + [(keep, k) for k in spare]:
             if need is not None and free >= need:
                 break
-            if prog.graphs[kind] is not None:
-                prog.graphs[kind] = None
-                RELEASED += 1
+            released = prog.release((kind,))
+            if released:
+                RELEASED += released
                 gc.collect()  # the pool goes with the last reference
                 free = _device_free(keep.device, ask)
         return need is not None and free >= need
+
+
+def _programs():
+    """Every cached program and the fallback it holds."""
+    for prog in _cache.values():
+        yield prog
+        if getattr(prog, "fallback", None) is not None:
+            yield prog.fallback
 
 
 def _sync(device):
@@ -249,16 +284,18 @@ def _copy(out):
 class _Graph:
     """One captured CUDA graph, its static outputs and the reserved bytes
     its capture added; captured with tracing on, its phases' events
-    (timing.GraphTrace) and the ray-query lanes each replay launches."""
+    (timing.GraphTrace) and the ray-query lanes each replay launches.
+    pool: another graph's memory pool to capture into (its pool())."""
 
-    def __init__(self, kind, body, device):
+    def __init__(self, kind, body, device, pool=None):
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         before = dict(ic.LAUNCHES)
         lanes = {k: w["captured"] for k, w in ic.WORK.items()}
         reserved = torch.cuda.memory_reserved(device)
         try:
-            with timing.capture() as trace, torch.cuda.graph(self.graph):
+            with timing.capture() as trace, torch.cuda.graph(self.graph,
+                                                             pool=pool):
                 self.out = body()
         except RuntimeError as e:
             raise RuntimeError(
@@ -274,6 +311,9 @@ class _Graph:
         LAST_CAPTURE[kind] = {
             "launches": {k: ic.LAUNCHES[k] - before[k] for k in before},
             "seconds": time.perf_counter() - t0, "bytes": self.bytes}
+
+    def pool(self):
+        return self.graph.pool()
 
     def replay(self):
         if self.trace is not None:
@@ -325,6 +365,13 @@ class Program:
     def _backward(self):
         return self._backward_body(self.scene, self.seed, self.ct)
 
+    def release(self, kinds=KINDS):
+        """Drops the graphs of `kinds`; the number dropped."""
+        dropped = sum(self.graphs[k] is not None for k in kinds)
+        for k in kinds:
+            self.graphs[k] = None
+        return dropped
+
     def run_eagerly(self, kind, body):
         """body() run eagerly, after room is made on the card for the need
         its kind measured at its last run (the key's own graphs of other
@@ -370,11 +417,13 @@ class Program:
                 if k in self.needs and (k == kind or self.graphs[k] is None))
             if not _make_room(need, self):
                 self.eager = True
-                self.graphs = dict.fromkeys(KINDS)
+                self.release()
                 return None
-            self.graphs[kind] = _Graph(kind, getattr(self, "_" + kind),
-                                       self.device)
+            self.graphs[kind] = self._new_graph(kind)
             return self.graphs[kind]
+
+    def _new_graph(self, kind):
+        return _Graph(kind, getattr(self, "_" + kind), self.device)
 
     def forward(self, tensors, seed):
         """The image of the scene tensors (scene_tensors order) at seed, a
@@ -390,6 +439,138 @@ class Program:
         with torch.no_grad():
             self.ct.copy_(ct)
         return self._run("backward")
+
+
+class _Tape:
+    """An eager forward's residuals: its image, carrying the autograd
+    graph, and the scene of leaves and the seed it rendered from."""
+
+    def __init__(self, image, scene, seed):
+        self.image, self.scene, self.seed = image, scene, seed
+
+
+class KeptProgram(Program):
+    """A Program whose backward graph takes autograd.grad through the
+    forward graph's own tape (see the module's docstring).  needs: which
+    scene tensors the gradients are for.  forward_body(scene, seed) ->
+    the image, rendered under autograd; backward_body(scene, seed, ct) ->
+    a gradient (or None) per scene tensor by rendering again, as a
+    Program's (the fallback's); kept_body(image, scene, seed, ct, retain)
+    -> the same gradients through the tape behind image (kept where
+    retain).  forward() and backward() take and give the residuals' token
+    of a call: its generation, or its eager _Tape."""
+
+    def __init__(self, scene, needs, forward_body, backward_body,
+                 kept_body):
+        super().__init__(scene, forward_body, backward_body)
+        self.needs_grad = list(needs)
+        # The forward graph renders from the static tensors under version
+        # counters of their own (.data): a call's load writes them outside
+        # autograd, and the tape is captured against them, so a later
+        # load never fails the saved tensors' version check at the
+        # backward's capture.
+        self.scene = scene_with_tensors(scene, [
+            s.data.requires_grad_(n) for s, n in zip(self.static, needs)])
+        self.generation = 0
+        self._kept_body = kept_body
+        self.fallback = None
+
+    @property
+    def bytes(self):
+        own = super().bytes
+        return own + (0 if self.fallback is None else self.fallback.bytes)
+
+    def release(self, kinds=KINDS):
+        """Drops both graphs (a pair goes whole) and moves the generation
+        on: a pending ctx's residuals are gone."""
+        self.generation += 1
+        return super().release(KINDS)
+
+    def _capture(self, kind):
+        """A forward's capture captures the backward beside it, into its
+        pool, when the backward is measured (make_graphed_callables'
+        order); else the backward is captured at its first measured need,
+        through the same tape."""
+        graph = super()._capture(kind)
+        if graph is not None and kind == "forward":
+            if self.ct is None:
+                self.ct = torch.empty_like(graph.out)
+            if "backward" in self.needs and super()._capture(
+                    "backward") is None:
+                return None
+        return graph
+
+    def _new_graph(self, kind):
+        if kind == "forward":
+            return super()._new_graph(kind)
+        return _Graph(kind, self._backward, self.device,
+                      pool=self.graphs["forward"].pool())
+
+    def _backward(self):
+        return self._kept_body(self.graphs["forward"].out, self.scene,
+                               self.seed, self.ct, False)
+
+    def forward(self, tensors, seed):
+        """(the image of the scene tensors at seed, a fresh tensor; the
+        token of its residuals)."""
+        self._load(tensors, seed)
+        graph = self.graphs["forward"]
+        if graph is None and "forward" in self.needs and not self.eager:
+            graph = self._capture("forward")
+        if graph is not None:
+            graph.replay()
+            self.generation += 1
+            with timing.span("cache.copy"):
+                return _copy(graph.out), self.generation
+        if self.eager:
+            EAGER["memory"] += 1
+
+        def body():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(tensors, self.needs_grad)]
+            scene = scene_with_tensors(self.scene, leaves)
+            return _Tape(self._forward_body(scene, seed), scene, seed)
+
+        tape = self.run_eagerly("forward", body)
+        with torch.no_grad():
+            return _copy(tape.image), tape
+
+    def backward(self, token, tensors, seed, ct):
+        """The gradients of <image, ct> (fresh tensors, None where none)
+        for the call whose residuals' token this is: through its eager
+        tape, or the forward graph's while the generation is the call's,
+        else by the fallback's re-render of its tensors.  A call's
+        residuals serve one backward: the walk frees an eager tape, and
+        the backward graph's gradients reuse the forward graph's blocks."""
+        if isinstance(token, _Tape) and token.image is not None:
+            image, token.image = token.image, None
+            BACKWARDS["kept"] += 1
+            if self.eager:
+                EAGER["memory"] += 1
+            return self.run_eagerly("backward", lambda: self._kept_body(
+                image, token.scene, token.seed, ct, False))
+        if (token == self.generation and self.graphs["backward"] is None
+                and "backward" in self.needs and not self.eager):
+            self._capture("backward")  # releases the pair where it cannot
+        if token != self.generation:
+            BACKWARDS["overwritten"] += 1
+            if self.fallback is None:
+                self.fallback = Program(self.scene, None,
+                                        self._backward_body)
+            return self.fallback.backward(tensors, seed, ct)
+        BACKWARDS["kept"] += 1
+        self.generation += 1
+        graph = self.graphs["backward"]
+        if graph is None:
+            # Not measured yet: run on the forward graph's tape, kept for
+            # the capture to come.
+            tape = self.graphs["forward"].out
+            return self.run_eagerly("backward", lambda: self._kept_body(
+                tape, self.scene, self.seed, ct, True))
+        self.ct.copy_(ct)
+        graph.replay()
+        with timing.span("cache.copy"):
+            return _copy(graph.out)
 
 
 def _mesh_key(sharding):

@@ -822,8 +822,8 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
     the second captures it), and returns a fresh tensor: when autograd is
     not recording (grad disabled, or no tensor of the scene requires
     grad) one forward graph (the JAX package's _render_image_jitted);
-    under autograd a forward graph and a backward graph that re-renders
-    under autograd at the same options and seed (jax.grad of it;
+    under autograd a forward graph that keeps its autograd tape and a
+    backward graph that takes the gradients through it (jax.grad of it;
     render_grad.graphed_render_image).  So does a pixel sharding over an
     NCCL group.  A CPU scene, a gloo group and graphs.disable() run the
     sample loop eagerly."""
@@ -857,11 +857,14 @@ def render_image(scene: Scene, options: RenderOptions, seed=0,
                                       pixel_sharding=pixel_sharding)
 
 
-def graph_forward(options: RenderOptions, engine=None, pixel_sharding=None):
+def graph_forward(options: RenderOptions, engine=None, pixel_sharding=None,
+                  grad=False):
     """The body of a forward CUDA graph (graphs.Program): (scene, seed) ->
-    the image, under no_grad (the `fwd` phase)."""
+    the image, under no_grad (the `fwd` phase); with grad, under autograd,
+    the image carrying the tape that a graphs.KeptProgram's backward
+    graph walks."""
     def forward(scene, seed):
-        with torch.no_grad(), timing.phase("fwd", seed.device):
+        with torch.set_grad_enabled(grad), timing.phase("fwd", seed.device):
             return _render_image_impl(scene, options, seed, engine,
                                       pixel_sharding=pixel_sharding)
     return forward

@@ -30,13 +30,22 @@ all-reduce, so every rank holds the one-process gradient.
 `render` on a card scene replays cached CUDA graphs (graphs.py; the JAX
 package's jit cache of `render`, :186-205): the first call for a
 configuration runs the forward eagerly and measures it, the second
-captures it, and so for the backward; later calls replay them.  Under a pixel sharding that holds for
-an NCCL group (its collectives are captured with the rest); a gloo group
-runs make_render's eager function, chosen from the group's backend before
-anything is captured (graphs.replays).  `make_render(options)` is the
+captures it, and so for the backward; later calls replay them.  Under
+a pixel sharding that holds for an NCCL group (its collectives are
+captured with the rest); a gloo group runs make_render's eager function,
+chosen from the group's backend before anything is captured
+(graphs.replays).  `make_render(options)` is the
 eager function (JAX `make_render`, :46): every call runs from Python on
 any device, which is what launch counting and tracing need; a CPU scene
 runs it too.
+
+Where the backward would re-render exactly the forward's image
+(_keeps_residuals: correlated, the forward's sample count, no secondary
+edges, no remat, no pixel sharding) the forward graph runs under
+autograd and keeps its tape, and the backward graph takes the gradients
+through it with no re-render (_kept_grads, graphs.KeptProgram); the
+primary-edge pass, which does not read the image, runs in the backward
+as before.
 
 Second derivatives (torch.autograd.grad(..., create_graph=True)): JAX
 differentiates render's custom_vjp bwd through the residual scene and the
@@ -67,7 +76,9 @@ and seed, which is autograd through render_image.
 With tracing on (timing.set_tracing) a backward is the `bwd` phase, made
 of `rerender` (the re-render under autograd, `edge.primary` inside it),
 `autograd` (split into the `bwd:<phase>` of the re-render's phases) and
-`reduce`; a call and its backward share one call id.
+`reduce`; through kept residuals, of `edge.primary` (where it is on),
+`autograd` (split into the forward's phases) and `reduce`, with no
+`rerender`.  A call and its backward share one call id.
 """
 
 from __future__ import annotations
@@ -148,9 +159,6 @@ def _scene_grads_body(scene, tensors, needs, options, seed, correlated,
         ct_img = ct_img.detach()
         leaves = [x.detach().requires_grad_(n)
                   for x, n in zip(tensors, needs)]
-    top, left, bottom, right = scene.camera.viewport_or_full
-    num_edge_samples = default_num_edge_samples(
-        options, (right - left) * (bottom - top))
     dev = ct_img.device
     with torch.enable_grad():
         with timing.phase("rerender", dev):
@@ -164,13 +172,6 @@ def _scene_grads_body(scene, tensors, needs, options, seed, correlated,
                 img = _render_image_impl(s, options_b, seed_b, engine,
                                          pixel_sharding=sharding)
                 surr = torch.zeros((), dtype=ct_img.dtype, device=dev)
-            if options.use_primary_edge_sampling:
-                with timing.phase("edge.primary", dev):
-                    surr = surr + primary_edge_gradients(
-                        s, flatten_scene, render_sample, options_b, seed_b,
-                        ct_img, num_edge_samples, engine=engine,
-                        lane_sharding=sharding)
-            # <img, ct_img> + surrogate: what JAX's vjp((ct_img, 1)) gives.
             # Under a sharding img is the gathered (replicated) image and
             # ct_img its whole cotangent, so the first term's gradient
             # reaches this rank's lanes through the gather's backward (the
@@ -178,11 +179,39 @@ def _scene_grads_body(scene, tensors, needs, options, seed, correlated,
             # leaves rank-partial gradients, and under create_graph both
             # give ct_img its whole (replicated) cotangent: the slice's
             # backward gathers the ranks' parts.
-            total = torch.sum(img * ct_img) + surr
-        wrt = [x for x, n in zip(leaves, needs) if n]
-        with timing.phase("autograd", dev):
-            grads = torch.autograd.grad(total, wrt, allow_unused=True,
-                                        create_graph=create_graph)
+            total = _edge_total(s, img, surr, options, options_b, seed_b,
+                                engine, sharding, ct_img)
+    return _leaf_grads(total, leaves, needs, sharding,
+                       create_graph=create_graph)
+
+
+def _edge_total(scene, img, surr, options, options_b, seed_b, engine,
+                sharding, ct_img):
+    """<img, ct_img> + surr + the primary-edge surrogate where it is on:
+    what JAX's vjp((ct_img, 1)) gives.  scene: the leaves' scene."""
+    if options.use_primary_edge_sampling:
+        top, left, bottom, right = scene.camera.viewport_or_full
+        num_edge_samples = default_num_edge_samples(
+            options, (right - left) * (bottom - top))
+        with timing.phase("edge.primary", ct_img.device):
+            surr = surr + primary_edge_gradients(
+                scene, flatten_scene, render_sample, options_b, seed_b,
+                ct_img, num_edge_samples, engine=engine,
+                lane_sharding=sharding)
+    return torch.sum(img * ct_img) + surr
+
+
+def _leaf_grads(total, leaves, needs, sharding, create_graph=False,
+                retain=False):
+    """The gradients of total w.r.t. the leaves with needs (None for the
+    others), in the `autograd` and `reduce` phases; summed over the ranks
+    under a sharding."""
+    dev = total.device
+    wrt = [x for x, n in zip(leaves, needs) if n]
+    with timing.phase("autograd", dev):
+        grads = torch.autograd.grad(total, wrt, allow_unused=True,
+                                    create_graph=create_graph,
+                                    retain_graph=retain or create_graph)
     with timing.phase("reduce", dev):
         if sharding is not None:
             # Zeros for unused leaves: every rank then reduces the same
@@ -194,6 +223,38 @@ def _scene_grads_body(scene, tensors, needs, options, seed, correlated,
                  for x, g in zip(wrt, grads)], sharding)
         grads = iter(grads)
         return tuple(next(grads) if n else None for n in needs)
+
+
+def _kept_grads(image, scene, needs, options, seed, engine, ct_img,
+                retain=False):
+    """The gradients _scene_grads gives, through the tape that rendered
+    `image` from the tensors of `scene` (scene_tensors order; those with
+    needs are the leaves) at `seed`: no re-render.  For a key whose
+    backward's image is the forward's (_keeps_residuals).  retain keeps
+    the tape for another walk."""
+    dev = ct_img.device
+    ct_img = ct_img.detach()
+    with timing.phase("bwd", dev):
+        with torch.enable_grad():
+            surr = torch.zeros((), dtype=ct_img.dtype, device=dev)
+            total = _edge_total(scene, image, surr, options, options, seed,
+                                engine, None, ct_img)
+        return _leaf_grads(total, scene_tensors(scene), needs, None,
+                           retain=retain)
+
+
+def _keeps_residuals(options, correlated, sharding):
+    """Whether the backward at these options renders exactly the
+    forward's image, so that it can take autograd.grad through the
+    forward's own tape: correlated samples, the forward's sample count,
+    no secondary edges (fused into the re-render, which needs ct_img
+    while it traces), no remat (which drops residuals on purpose) and no
+    pixel sharding."""
+    use_secondary = (options.use_secondary_edge_sampling
+                     and options.channel_info.radiance_dimension >= 0)
+    return (correlated and not use_secondary and not options.remat
+            and options.num_samples_backward == options.num_samples
+            and sharding is None)
 
 
 def _continuous(options):
@@ -286,7 +347,9 @@ class _RenderFunction(torch.autograd.Function):
 
 class _GraphedRender(torch.autograd.Function):
     """The compiled render: forward(program, spec, seed, *tensors) replays
-    the program's forward graph, backward its backward graph.  spec:
+    the program's forward graph, backward its backward graph (through the
+    forward graph's kept residuals on a graphs.KeptProgram, whose
+    forward's token of them the ctx holds).  spec:
     (backward options, correlated, engine, pixel_sharding) of the
     program's backward body, which a backward that records, or belongs to
     a pass that differentiates a recorded gradient, runs eagerly on the
@@ -300,7 +363,11 @@ class _GraphedRender(torch.autograd.Function):
         ctx.outer_passes = set()
         ctx.call = timing.current_call()
         ctx.save_for_backward(seed, *tensors)
-        return program.forward(tensors, seed)
+        if not isinstance(program, graphs.KeptProgram):
+            ctx.kept = None
+            return program.forward(tensors, seed)
+        img, ctx.kept = program.forward(tensors, seed)
+        return img
 
     @staticmethod
     def backward(ctx, ct_img):
@@ -308,9 +375,14 @@ class _GraphedRender(torch.autograd.Function):
         with timing.entry("render.backward", ctx.call):
             if not (torch.is_grad_enabled()
                     or _differentiates_recorded(ctx)):
+                if ctx.kept is not None:
+                    return (None,) * 3 + ctx.program.backward(
+                        ctx.kept, tensors, seed, ct_img)
+                graphs.BACKWARDS["ineligible"] += 1
                 return (None,) * 3 + ctx.program.backward(tensors, seed,
                                                           ct_img)
             graphs.EAGER["create_graph"] += 1
+            graphs.BACKWARDS["create_graph"] += 1
             scene = scene_with_tensors(ctx.program.scene, tensors)
             return (None,) * 3 + ctx.program.run_eagerly(
                 "create_graph", lambda: _backward(ctx, scene, tensors, seed,
@@ -346,18 +418,31 @@ def make_render(options: RenderOptions, pixel_sharding=None,
 def _make_program(options, correlated, engine, sharding=None,
                   backward_options=None):
     """make(scene) -> the Program of render at options (the backward at
-    backward_options, default options) over `sharding`."""
+    backward_options, default options) over `sharding`: a
+    graphs.KeptProgram where the backward's image is the forward's
+    (_keeps_residuals), else a forward graph and a re-rendering backward
+    graph."""
     backward_options = backward_options or options
+    keep = _keeps_residuals(backward_options, correlated, sharding)
 
     def make(scene):
         needs = [t.requires_grad for t in scene_tensors(scene)]
 
-        def backward(s, seed, ct):
+        def rerender(s, seed, ct):
             return _scene_grads(s, scene_tensors(s), needs, backward_options,
                                 seed, correlated, engine, sharding, ct)
 
-        return graphs.Program(
-            scene, graph_forward(options, engine, sharding), backward)
+        if not keep:
+            return graphs.Program(
+                scene, graph_forward(options, engine, sharding), rerender)
+
+        def kept(image, s, seed, ct, retain):
+            return _kept_grads(image, s, needs, backward_options, seed,
+                               engine, ct, retain)
+
+        return graphs.KeptProgram(
+            scene, needs, graph_forward(options, engine, grad=True),
+            rerender, kept)
 
     return make
 
@@ -405,10 +490,11 @@ def _render_image_program(options, engine, sharding=None):
 def graphed_render_image(scene, options: RenderOptions, seed, engine,
                          pixel_sharding):
     """render_image under autograd, replayed from graphs (render.render_image
-    calls it on a card): the forward graph renders the image; the backward
-    graph re-renders under autograd and takes autograd.grad, the leaves'
-    gradients summed over the ranks under a sharding.  seed: the int64
-    device seed."""
+    calls it on a card): the forward graph renders the image under
+    autograd, and the backward graph takes autograd.grad through its kept
+    tape; with remat or under a sharding the forward graph runs under
+    no_grad and the backward graph re-renders under autograd, the leaves'
+    gradients summed over the ranks.  seed: the int64 device seed."""
     prog = graphs.program(
         "render_image_grad", scene, options, None, engine,
         _render_image_program(options, engine, pixel_sharding),

@@ -958,6 +958,139 @@ def test_one_rank_nccl_second_derivative_matches_one_process(dev, tmp_path,
         assert float((g - r).norm() / r.norm()) <= 1e-4
 
 
+# ------------------------------------- the forward graph's kept residuals
+
+
+def _backwards(before):
+    """graphs.BACKWARDS since `before`, the causes that moved."""
+    return {k: v - before[k] for k, v in graphs.BACKWARDS.items()
+            if v != before[k]}
+
+
+NO_EDGES = dict(num_samples=2, max_bounces=1,
+                use_primary_edge_sampling=False,
+                use_secondary_edge_sampling=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["render", "render_primary",
+                                  "render_image"])
+def test_graphed_kept_residuals_match_eager(dev, name):
+    """A key whose backward renders the forward's image (here correlated,
+    no secondary edges; render with and without primary edges, and
+    render_image under autograd) is a KeptProgram: one forward and one
+    backward capture, every backward through the kept residuals, and the
+    eager route's image and gradients (as _graphed_vs_eager checks them)
+    at two seeds and after an in-place update of the vertices."""
+    opts = rtt.RenderOptions(**dict(
+        NO_EDGES, use_primary_edge_sampling=name == "render_primary"))
+    fn = rtt.render_image if name == "render_image" else rtt.render
+    w = np.random.default_rng(9).uniform(0.5, 1.5, (32, 32, 3)).astype(
+        np.float32)
+    before = dict(graphs.BACKWARDS)
+    captures, fresh = _graphed_vs_eager(
+        lambda s, sd: fn(s, opts, seed=sd), _scene(dev, res=(32, 32)), w)
+    assert captures == {"forward": 1, "backward": 1} and fresh
+    (prog,) = graphs._cache.values()
+    assert isinstance(prog, graphs.KeptProgram) and prog.fallback is None
+    assert _backwards(before) == {"kept": 3}
+
+
+@pytest.mark.cuda
+def test_two_views_before_one_backward_fall_back(dev):
+    """Two renders of one key before one backward.  The first pass: the
+    first view runs eagerly and keeps its eager tape, the second captures
+    the forward graph alone (no backward measured yet), and its backward
+    runs eagerly on that graph's tape, kept for the backward's capture at
+    the next pass; both kept.  Later passes: the later view's backward is
+    kept, the earlier's residuals were overwritten by the later forward
+    replay, so it renders again from its own tensors (the fallback, eager
+    at its first need, then captured).  Every pass's gradients are the
+    eager route's."""
+    opts = rtt.RenderOptions(**NO_EDGES)
+    scene = _scene(dev, res=(32, 32))
+    leaves = [scene.shapes[0].vertices,
+              scene.materials[0].diffuse_reflectance.texels,
+              scene.area_lights[0].intensity]
+    w = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.5, (32, 32, 3)).astype(np.float32), device=dev)
+
+    def views(seeds):
+        imgs = [rtt.render(scene, opts, seed=sd) for sd in seeds]
+        return torch.autograd.grad(
+            sum(torch.sum(i * w) for i in imgs), leaves)
+
+    graphs.clear()
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        before = dict(graphs.BACKWARDS)
+        views([1, 2])
+        assert _backwards(before) == {"kept": 2}
+        before = dict(graphs.BACKWARDS)
+        for step in range(3):
+            seeds = [5 + 2 * step, 6 + 2 * step]
+            got = views(seeds)
+            with graphs.disable():
+                ref = views(seeds)
+            for g, r in zip(got, ref):
+                assert torch.isfinite(g).all() and float(r.abs().max()) > 0
+                torch.testing.assert_close(
+                    g, r, rtol=1e-4, atol=1e-6 * float(r.abs().max()))
+        assert _backwards(before) == {"kept": 3, "overwritten": 3}
+        (prog,) = graphs._cache.values()
+        assert prog.fallback.graphs["backward"] is not None
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+        graphs.clear()
+
+
+@pytest.mark.cuda
+def test_a_released_pair_captures_again(dev):
+    """Releasing either graph of a kept pair releases both (and moves the
+    generation on); the next call captures both again, kept, and gives
+    the eager route's image and gradients."""
+    opts = rtt.RenderOptions(**NO_EDGES)
+    scene = _scene(dev, res=(16, 16))
+    w = np.random.default_rng(3).uniform(0.5, 1.5, (16, 16, 3)).astype(
+        np.float32)
+    render = lambda s, sd: rtt.render(s, opts, seed=sd)  # noqa: E731
+    _graphed_vs_eager(render, scene, w, seeds=(5, 6))
+    (prog,) = graphs._cache.values()
+    generation = prog.generation
+    assert prog.release(("backward",)) == 2
+    assert prog.bytes == 0 and prog.generation > generation
+    before = dict(graphs.BACKWARDS)
+    captures, _ = _graphed_vs_eager(render, scene, w, seeds=(7,),
+                                    clear=False)
+    assert captures == {"forward": 1, "backward": 1}
+    assert _backwards(before) == {"kept": 1} and prog.bytes > 0
+
+
+@pytest.mark.cuda
+def test_a_recording_backward_of_a_kept_key_runs_eagerly(dev):
+    """create_graph through a kept key's render runs its backward eagerly
+    on the saved tensors, as before (both passes' backwards of a second
+    derivative), and equals graphs.disable()'s second derivative."""
+    opts = rtt.RenderOptions(**NO_EDGES)
+    render = lambda s, sd: rtt.render(s, opts, seed=sd)  # noqa: E731
+    scene = _scene(dev, res=(16, 16))
+    graphs.clear()
+    before = dict(graphs.BACKWARDS)
+    for _ in range(2):  # the key's eager run, then its capture
+        got = _second_order(render, scene, 5)
+    assert _backwards(before) == {"create_graph": 4}
+    assert isinstance(next(iter(graphs._cache.values())),
+                      graphs.KeptProgram)
+    with graphs.disable():
+        ref = _second_order(render, scene, 5)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all() and float(r.norm()) > 0
+        assert float((g - r).norm() / r.norm()) <= 1e-4
+    graphs.clear()
+
+
 @pytest.mark.cuda
 def test_sampling_table_scan_is_the_same_every_run(dev):
     """vecmath.cumsum on the card: 50 scans of a 2^17-entry table give one
